@@ -1,0 +1,243 @@
+"""K1: the whole NeRF MLP fused into one CUDA kernel (``csrc/fused_mlp.cu``).
+
+Replaces the TPU kernel ``nerf_sandbox_tpu/ops/fused_mlp.py:fused_nerf_apply``
+(Pallas body ``_kernel``). Bound on the H100: 1.19 MFLOP of bf16 tensor-core
+work per row at the vanilla widths against ~190 bytes of HBM traffic, so
+the tensor cores set the bound; the kernel keeps each 64-row tile's
+activations in shared memory and reads the ~1.2 MB of packed weights from L2
+(design notes in ``csrc/mlp_tile.cuh``).
+
+Rounding points are those of the TPU kernel: bf16 operands, fp32
+accumulation, fp32 add of the bf16-rounded bias, relu then a bf16 cast
+between layers, skip as ``h@W_h + enc@W_e``, sigma from the last trunk
+activation, the feature cast to bf16 before the colour head.
+
+:func:`fused_nerf_apply_plain` is the same function in plain PyTorch (bf16
+values upcast to fp32, fp32 products with TF32 off). :func:`fused_nerf_apply`
+takes it only for CPU tensors; for CUDA tensors it launches the kernel or
+raises, and counts the launch in ``fused_nerf_apply.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from nerf_sandbox_tpu_torch.device import resolve_device
+from nerf_sandbox_tpu_torch.models.mlp import NeRFConfig, NeRFMLP
+from nerf_sandbox_tpu_torch.ops import cuda_build
+
+TILE_M = 64                  # sample rows per CUDA block (csrc/mlp_tile.cuh)
+PLAIN_ROWS = 1 << 18         # row chunk of the plain version (bounds memory)
+_ALIGN = 64                  # packed arrays start on 128-byte boundaries
+
+PACK_FIELDS = ("w0", "b0", "w_mid", "b_mid", "wskip_h", "wskip_e", "bskip",
+               "w_feat", "b_feat", "w_sig", "b_sig", "wc1", "bc1", "wc2t",
+               "bc2")
+
+
+def _enc_pads(cfg: NeRFConfig) -> tuple[int, int]:
+    """Encoder widths padded for the tensor-core tiles (vanilla: 63→64, 27→32)."""
+    ep = ((cfg.enc_pos_dim + 63) // 64) * 64
+    ed = ((cfg.enc_dir_dim + 31) // 32) * 32
+    return ep, ed
+
+
+def fusable(cfg: NeRFConfig) -> bool:
+    """The kernel covers the reference architecture family: one skip at
+    0<skip_pos<n_layers, hidden multiple of 128, and at least one non-skip
+    mid layer (n_layers >= 3)."""
+    return (cfg.hidden_dim % 128 == 0 and 0 < cfg.skip_pos < cfg.n_layers
+            and cfg.n_layers >= 3 and not cfg.app_dim)
+
+
+def _pack_shapes(cfg: NeRFConfig) -> dict:
+    H = cfg.hidden_dim
+    ep, ed = _enc_pads(cfg)
+    n_mid = cfg.n_layers - 2
+    return {"w0": (ep, H), "b0": (H,), "w_mid": (n_mid, H, H),
+            "b_mid": (n_mid, H), "wskip_h": (H, H), "wskip_e": (ep, H),
+            "bskip": (H,), "w_feat": (H, H), "b_feat": (H,), "w_sig": (H,),
+            "b_sig": (1,), "wc1": (H + ed, H // 2), "bc1": (H // 2,),
+            "wc2t": (3, H // 2), "bc2": (3,)}
+
+
+class PackedMLP(NamedTuple):
+    """The MLP's weights as one bf16 buffer (the kernels' argument) plus a
+    named view of each array in it. Weights are (in, out), except the
+    colour output ``wc2t`` (3, H/2)."""
+
+    cfg: NeRFConfig
+    flat: torch.Tensor
+    offsets: tuple
+    views: dict
+
+
+def pack_nerf_params(model: NeRFMLP) -> PackedMLP:
+    """Pack the module's weights into the kernels' bf16 layout: encoder rows
+    zero-padded (63→64, 27→32), the skip layer split into its h and enc
+    blocks, the non-skip mid layers stacked."""
+    cfg = model.cfg
+    if not fusable(cfg):
+        raise ValueError(f"the fused kernels do not cover {cfg}")
+    shapes = _pack_shapes(cfg)
+    offsets, total = [], 0
+    for name in PACK_FIELDS:
+        offsets.append(total)
+        n = 1
+        for s in shapes[name]:
+            n *= s
+        total += -(-n // _ALIGN) * _ALIGN
+    dev = model.feature.weight.device
+    flat = torch.zeros(total, dtype=torch.bfloat16, device=dev)
+    views = {}
+    for name, off in zip(PACK_FIELDS, offsets):
+        n = 1
+        for s in shapes[name]:
+            n *= s
+        views[name] = flat[off:off + n].view(shapes[name])
+
+    H, P, D = cfg.hidden_dim, cfg.enc_pos_dim, cfg.enc_dir_dim
+    with torch.no_grad():
+        trunk = model.mlp
+        views["w0"][:P].copy_(trunk[0].weight.T)
+        views["b0"].copy_(trunk[0].bias)
+        mids = [i for i in range(1, cfg.n_layers) if i != cfg.skip_pos]
+        for k, i in enumerate(mids):
+            views["w_mid"][k].copy_(trunk[i].weight.T)
+            views["b_mid"][k].copy_(trunk[i].bias)
+        wskip = trunk[cfg.skip_pos].weight.T                   # (H+P, H)
+        views["wskip_h"].copy_(wskip[:H])
+        views["wskip_e"][:P].copy_(wskip[H:])
+        views["bskip"].copy_(trunk[cfg.skip_pos].bias)
+        views["w_feat"].copy_(model.feature.weight.T)
+        views["b_feat"].copy_(model.feature.bias)
+        views["w_sig"].copy_(model.sigma_out.weight[0])
+        views["b_sig"].copy_(model.sigma_out.bias)
+        wc1 = model.color_fc.weight.T                          # (H+D, H/2)
+        views["wc1"][:H].copy_(wc1[:H])
+        views["wc1"][H:H + D].copy_(wc1[H:])
+        views["bc1"].copy_(model.color_fc.bias)
+        views["wc2t"].copy_(model.color_out.weight)
+        views["bc2"].copy_(model.color_out.bias)
+    return PackedMLP(cfg, flat, tuple(offsets), views)
+
+
+def as_packed(model) -> PackedMLP:
+    """A module's packed weights; an already packed set passes through (so a
+    caller that launches many tiles packs once)."""
+    return model if isinstance(model, PackedMLP) else pack_nerf_params(model)
+
+
+def mlp_rows_plain(packed: PackedMLP, ep: torch.Tensor,
+                   ed: torch.Tensor) -> torch.Tensor:
+    """K1's arithmetic on bf16 rows already padded to (R, EP) and (R, ED)
+    → (R, 4) fp32; used by the plain versions of K1 and K2."""
+    v, cfg = packed.views, packed.cfg
+    H = cfg.hidden_dim
+
+    def f(t):
+        return t.float()
+
+    def relu_bf16(y):
+        return torch.relu(y).to(torch.bfloat16)
+
+    h = relu_bf16(f(ep) @ f(v["w0"]) + f(v["b0"]))
+    mid = 0
+    for layer in range(1, cfg.n_layers):
+        if layer == cfg.skip_pos:
+            y = f(h) @ f(v["wskip_h"]) + f(ep) @ f(v["wskip_e"]) + f(v["bskip"])
+        else:
+            y = f(h) @ f(v["w_mid"][mid]) + f(v["b_mid"][mid])
+            mid += 1
+        h = relu_bf16(y)
+    feature = (f(h) @ f(v["w_feat"]) + f(v["b_feat"])).to(torch.bfloat16)
+    sigma = f(h) @ f(v["w_sig"]) + f(v["b_sig"])
+    ch = relu_bf16(f(feature) @ f(v["wc1"][:H]) + f(ed) @ f(v["wc1"][H:])
+                   + f(v["bc1"]))
+    rgb = f(ch) @ f(v["wc2t"]).T + f(v["bc2"])
+    return torch.cat([rgb, sigma[:, None]], dim=-1)
+
+
+def pad_cols_bf16(x: torch.Tensor, cols: int) -> torch.Tensor:
+    """(R, c) → (R, cols) bf16 with zero columns appended."""
+    out = torch.zeros((x.shape[0], cols), dtype=torch.bfloat16, device=x.device)
+    out[:, :x.shape[1]] = x
+    return out
+
+
+def fused_nerf_apply_plain(packed: PackedMLP, enc_pos: torch.Tensor,
+                           enc_dir: torch.Tensor) -> torch.Tensor:
+    """K1's plain PyTorch version, on any device: (Q, P), (Q, D) → (Q, 4)."""
+    ep_pad, ed_pad = _enc_pads(packed.cfg)
+    outs = []
+    for i in range(0, enc_pos.shape[0], PLAIN_ROWS):
+        ep = pad_cols_bf16(enc_pos[i:i + PLAIN_ROWS].to(torch.bfloat16), ep_pad)
+        ed = pad_cols_bf16(enc_dir[i:i + PLAIN_ROWS].to(torch.bfloat16), ed_pad)
+        outs.append(mlp_rows_plain(packed, ep, ed))
+    if not outs:
+        return torch.zeros((0, 4), dtype=torch.float32, device=enc_pos.device)
+    return torch.cat(outs)
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def offsets_arg(packed: PackedMLP):
+    return (ctypes.c_longlong * len(packed.offsets))(*packed.offsets)
+
+
+def _launch(packed: PackedMLP, enc_pos: torch.Tensor,
+            enc_dir: torch.Tensor) -> torch.Tensor:
+    """Launch K1 on the current stream (inputs on one CUDA device)."""
+    cfg = packed.cfg
+    Q = enc_pos.shape[0]
+    if enc_pos.shape != (Q, cfg.enc_pos_dim) or enc_dir.shape != (Q, cfg.enc_dir_dim):
+        raise ValueError(f"fused_nerf_apply: expected (Q,{cfg.enc_pos_dim}) and "
+                         f"(Q,{cfg.enc_dir_dim}), got {tuple(enc_pos.shape)} "
+                         f"and {tuple(enc_dir.shape)}")
+    for t in (enc_pos, enc_dir, packed.flat):
+        if t.device != enc_pos.device or t.device.type != "cuda":
+            raise ValueError("fused_nerf_apply: all tensors must be on one "
+                             "CUDA device")
+    ep = enc_pos.to(torch.bfloat16).contiguous()
+    ed = enc_dir.to(torch.bfloat16).contiguous()
+    out = torch.empty((Q, 4), dtype=torch.float32, device=ep.device)
+    ep_pad, ed_pad = _enc_pads(cfg)
+    lib = cuda_build.load("fused_mlp")
+    fn = lib.nerf_fused_mlp
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(ep.device).cuda_stream
+    err = fn(_ptr(ep), _ptr(ed), _ptr(packed.flat), offsets_arg(packed), Q,
+             cfg.enc_pos_dim, cfg.enc_dir_dim, cfg.hidden_dim, ep_pad, ed_pad,
+             cfg.n_layers, cfg.skip_pos, _ptr(out), ctypes.c_void_p(stream))
+    cuda_build.check(lib, err, "fused_mlp kernel launch")
+    fused_nerf_apply.launches += 1
+    return out
+
+
+def fused_nerf_apply(model: NeRFMLP | PackedMLP, enc_pos: torch.Tensor,
+                     enc_dir: torch.Tensor, *, device=None) -> torch.Tensor:
+    """Drop-in fused replacement for the bf16 MLP forward: enc_pos (Q, P),
+    enc_dir (Q, D) → (Q, 4) fp32 raw [r, g, b, sigma] logits.
+
+    Runs on ``cuda`` (the K1 kernel) unless ``device="cpu"`` (the plain
+    version); the model's parameters (or its :class:`PackedMLP`) must
+    already be on that device.
+    """
+    dev = resolve_device(device)
+    packed = as_packed(model)
+    if packed.flat.device.type != dev.type:
+        raise ValueError(f"model is on {packed.flat.device}, asked to run on {dev}")
+    enc_pos, enc_dir = enc_pos.to(dev), enc_dir.to(dev)
+    if dev.type == "cpu":
+        return fused_nerf_apply_plain(packed, enc_pos, enc_dir)
+    return _launch(packed, enc_pos, enc_dir)
+
+
+fused_nerf_apply.launches = 0

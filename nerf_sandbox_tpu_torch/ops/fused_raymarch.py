@@ -1,0 +1,200 @@
+"""K2: the fused eval ray-march (``csrc/fused_raymarch.cu``), frequency encoder.
+
+Replaces the TPU kernel ``nerf_sandbox_tpu/ops/fused_raymarch.py:fused_raymarch``
+(Pallas bodies ``_kernel`` / ``_kernel_chunk_body``), frequency branch: per
+ray, ``pts = o + d̂·z·‖d‖`` → fp32 sin/cos encode → the K1 MLP → sigmoid rgb,
+relu/softplus σ → ``α = 1-exp(-clip(σΔ,0,60))`` → ``T = exp(Σ log(1-α+1e-10))``
+→ per-sample weights and per-ray Σw, Σw·z, Σw·rgb (+ white background),
+with optional early ray termination (ERT).
+
+Bound on the H100: the MLP's 1.19 MFLOP of bf16 work per sample against
+about 10 bytes of HBM traffic per sample (z, Δ in; weight out), so the
+tensor cores set the bound: one 16384×192 fine tile is 3.73 TFLOP, 3.8 ms at
+989 TFLOP/s. Design (``csrc/fused_raymarch.cu``): one block owns 16 rays and
+loops over their samples 4 at a time as 64-row MLP tiles, with the per-ray
+accumulators in registers — the TPU's sequential-grid carry becomes a loop
+inside the block — and ERT ends a block once all its rays have T < eps.
+
+:func:`fused_raymarch_plain` is the same function in plain PyTorch with the
+kernel's bf16 rounding points; it marches every sample (ERT changes each
+output by less than ``ert_eps`` per channel). :func:`fused_raymarch` takes it
+only for CPU tensors; for CUDA tensors it launches the kernel or raises, and
+counts the launch in ``fused_raymarch.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from nerf_sandbox_tpu_torch.core.encoding import positional_encoding
+from nerf_sandbox_tpu_torch.device import resolve_device
+from nerf_sandbox_tpu_torch.models.mlp import NeRFMLP
+from nerf_sandbox_tpu_torch.ops import cuda_build
+from nerf_sandbox_tpu_torch.ops.fused_mlp import (
+    PLAIN_ROWS, PackedMLP, _enc_pads, _ptr, as_packed, mlp_rows_plain,
+    offsets_arg, pad_cols_bf16)
+
+RAYS_PER_BLOCK = 16          # csrc/fused_raymarch.cu: RAYS
+MAX_BANDS = 32               # csrc/fused_raymarch.cu: MAX_BANDS
+
+
+def _deltas(z_vals: torch.Tensor, ray_norms: torch.Tensor,
+            infinite_last_bin: bool) -> torch.Tensor:
+    """Δ = diff(z) with the last bin, × ‖d‖ (JAX fused_raymarch.py:592-595)."""
+    B = z_vals.shape[0]
+    d_fin = z_vals[:, 1:] - z_vals[:, :-1]
+    d_last = torch.full_like(z_vals[:, :1], 1e10 if infinite_last_bin else 0.0)
+    return torch.cat([d_fin, d_last], dim=1) * ray_norms.reshape(B, 1)
+
+
+def fused_raymarch_plain(packed: PackedMLP, rays_o, rays_d_unit, z_vals, dt,
+                         ray_norms, enc_dir, pos_bands, *,
+                         pos_include_input: bool = True,
+                         sigma_activation: str = "relu",
+                         white_bkgd: bool = True):
+    """K2's plain PyTorch version, on any device → (raw (B, 5), w (B, N)).
+
+    ``raw`` holds Σw·rgb (+ background), clipped Σw and Σw·z per ray, as the
+    kernel writes them. Rays are processed in chunks of about 2^18 samples.
+    """
+    B, N = z_vals.shape
+    ep_pad, ed_pad = _enc_pads(packed.cfg)
+    ed_all = pad_cols_bf16(enc_dir.to(torch.bfloat16), ed_pad)
+    step = max(1, PLAIN_ROWS // N)
+    raws, ws = [], []
+    for i in range(0, B, step):
+        sl = slice(i, i + step)
+        z = z_vals[sl]
+        b = z.shape[0]
+        zm = z * ray_norms[sl].reshape(b, 1)
+        pts = rays_o[sl, None, :] + rays_d_unit[sl, None, :] * zm[..., None]
+        enc = positional_encoding(pts.reshape(-1, 3), pos_bands,
+                                  include_input=pos_include_input)
+        ep = pad_cols_bf16(enc.to(torch.bfloat16), ep_pad)
+        ed = ed_all[sl].repeat_interleave(N, dim=0)
+        out = mlp_rows_plain(packed, ep, ed)
+        rgb = torch.sigmoid(out[:, :3]).reshape(b, N, 3)
+        sig = out[:, 3].reshape(b, N)
+        sig = (torch.nn.functional.softplus(sig) if sigma_activation == "softplus"
+               else torch.relu(sig))
+        one_m_alpha = torch.exp(-torch.clamp(sig * dt[sl], 0.0, 60.0))
+        lg = torch.log(one_m_alpha + 1e-10)
+        log_t = torch.cat([torch.zeros_like(lg[:, :1]),
+                           torch.cumsum(lg, dim=1)[:, :-1]], dim=1)
+        w = torch.exp(log_t) * (1.0 - one_m_alpha)
+        acc = torch.clamp(w.sum(dim=1, keepdim=True), 0.0, 1.0)
+        comp = (w[..., None] * rgb).sum(dim=1)
+        if white_bkgd:
+            comp = comp + (1.0 - acc)
+        raws.append(torch.cat([comp, acc, (w * z).sum(dim=1, keepdim=True)], 1))
+        ws.append(w)
+    return torch.cat(raws), torch.cat(ws)
+
+
+def _launch(packed: PackedMLP, rays_o, rays_d_unit, z_vals, dt, ray_norms,
+            enc_dir, bands: np.ndarray, *, pos_include_input: bool,
+            sigma_activation: str, white_bkgd: bool, ert_eps: float):
+    """Launch K2 on the current stream (inputs on one CUDA device)."""
+    cfg = packed.cfg
+    B, N = z_vals.shape
+    dev = z_vals.device
+    f32 = [t.to(torch.float32).contiguous()
+           for t in (rays_o, rays_d_unit, ray_norms.reshape(B), enc_dir,
+                     z_vals, dt)]
+    if any(t.device != dev or t.device.type != "cuda" for t in f32 + [packed.flat]):
+        raise ValueError("fused_raymarch: all tensors must be on one CUDA device")
+    ro, rd, rn, ed, z, d = f32
+    if ro.shape != (B, 3) or rd.shape != (B, 3) or ed.shape != (B, cfg.enc_dir_dim):
+        raise ValueError("fused_raymarch: bad ray shapes "
+                         f"{tuple(ro.shape)}, {tuple(rd.shape)}, {tuple(ed.shape)}")
+    if bands.size > MAX_BANDS:
+        raise ValueError(f"fused_raymarch: at most {MAX_BANDS} bands")
+    if (3 if pos_include_input else 0) + 6 * bands.size != cfg.enc_pos_dim:
+        raise ValueError("fused_raymarch: pos_bands do not give enc_pos_dim")
+    out_ray = torch.empty((B, 5), dtype=torch.float32, device=dev)
+    out_w = torch.empty((B, N), dtype=torch.float32, device=dev)
+    ep_pad, ed_pad = _enc_pads(cfg)
+    lib = cuda_build.load("fused_raymarch")
+    fn = lib.nerf_fused_raymarch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_float)]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+                   + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 11
+                   + [ctypes.c_float] + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(_ptr(ro), _ptr(rd), _ptr(rn), _ptr(ed), _ptr(z), _ptr(d),
+             (ctypes.c_float * max(1, bands.size))(*bands.tolist()),
+             int(bands.size), int(pos_include_input), _ptr(packed.flat),
+             offsets_arg(packed), B, N, cfg.enc_dir_dim, cfg.hidden_dim,
+             ep_pad, ed_pad, cfg.n_layers, cfg.skip_pos,
+             int(sigma_activation == "softplus"), int(white_bkgd),
+             int(ert_eps > 0.0),
+             float(np.log(ert_eps)) if ert_eps > 0.0 else 0.0,
+             _ptr(out_ray), _ptr(out_w), ctypes.c_void_p(stream))
+    cuda_build.check(lib, err, "fused_raymarch kernel launch")
+    fused_raymarch.launches += 1
+    return out_ray, out_w
+
+
+def fused_raymarch(model: NeRFMLP | PackedMLP, rays_o, rays_d_unit, z_vals, ray_norms,
+                   enc_dir, pos_bands, *, pos_include_input: bool = True,
+                   sigma_activation: str = "relu", white_bkgd: bool = True,
+                   infinite_last_bin: bool = True, ert_eps: float = 0.0,
+                   scene_contraction: bool = False, kp_params=None,
+                   kp_cfg=None, ipe_radii=None, device=None):
+    """Fused eval forward → (comp (B,3), weights (B,N), acc (B,1), depth (B,1)).
+
+    ``enc_dir`` is the per-RAY encoded view direction (B, enc_dir_dim);
+    ``pos_bands`` (F,) the position frequency bands. Matches
+    ``nerf_forward_pass`` + ``volume_render_rays`` eval semantics with bf16
+    MLP products. ``ert_eps`` > 0 enables early ray termination (each output
+    moves by less than ``ert_eps`` per channel; skipped weights are 0).
+
+    Runs on ``cuda`` (the K2 kernel) unless ``device="cpu"`` (the plain
+    version); the model's parameters (or its :class:`PackedMLP`) must
+    already be on that device.
+    """
+    if scene_contraction:
+        raise NotImplementedError(
+            "in-kernel scene contraction is kernel K2c (ROADMAP queue 2)")
+    if kp_params is not None or kp_cfg is not None:
+        raise NotImplementedError(
+            "the in-kernel k-planes encode is kernel K3 (ROADMAP queue 2)")
+    if ipe_radii is not None:
+        raise NotImplementedError(
+            "the in-kernel IPE encode is kernel K4 (ROADMAP queue 2)")
+    dev = resolve_device(device)
+    packed = as_packed(model)
+    if packed.flat.device.type != dev.type:
+        raise ValueError(f"model is on {packed.flat.device}, asked to run on {dev}")
+    rays_o, rays_d_unit, z_vals, ray_norms, enc_dir = (
+        t.to(dev, torch.float32)
+        for t in (rays_o, rays_d_unit, z_vals, ray_norms, enc_dir))
+    bands = np.asarray(pos_bands, np.float32).reshape(-1)
+    dt = _deltas(z_vals, ray_norms, infinite_last_bin)
+    kw = dict(pos_include_input=pos_include_input,
+              sigma_activation=sigma_activation, white_bkgd=white_bkgd)
+    if dev.type == "cpu":
+        raw, w = fused_raymarch_plain(packed, rays_o, rays_d_unit, z_vals, dt,
+                                      ray_norms, enc_dir, bands, **kw)
+    else:
+        raw, w = _launch(packed, rays_o, rays_d_unit, z_vals, dt, ray_norms,
+                         enc_dir, bands, ert_eps=ert_eps, **kw)
+    return fixup_outputs(raw, w)
+
+
+def fixup_outputs(raw: torch.Tensor, w: torch.Tensor):
+    """Kernel/plain raw outputs → (comp, weights, acc, depth), with the JAX
+    wrapper's fix-up (fused_raymarch.py:698-704)."""
+    comp = torch.clamp(torch.nan_to_num(raw[:, 0:3], nan=0.0, posinf=1.0,
+                                        neginf=0.0), 0.0, 1.0)
+    acc = raw[:, 3:4]
+    depth = raw[:, 4:5] / (acc + 1e-10)
+    w = torch.nan_to_num(w, nan=0.0, posinf=0.0, neginf=0.0)
+    return comp, w, acc, depth
+
+
+fused_raymarch.launches = 0

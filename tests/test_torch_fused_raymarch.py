@@ -1,0 +1,158 @@
+"""K2's plain PyTorch version (``ops/fused_raymarch.py``) against the JAX
+fused ray-march (Pallas, interpret mode) and the JAX eval forward pass in
+bf16, at the vanilla 8x256 widths, on the CPU. The CUDA kernel is held
+against this plain version on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
+
+Tolerances are those of ``tests/test_fused_raymarch.py``: comp, weights and
+acc 2e-2, depth 0.1 (bf16 accumulation order); padding independence 1e-5.
+
+The infinite last bin makes a ray's output a step function of the sign of
+its last sigma logit (α jumps from 0 to 1 for any logit above ~1e-8), so two
+correct implementations whose logits differ by bf16 rounding disagree on a
+ray whose last logit is near zero. The inputs here are checked to keep every
+last logit at least ``KINK_MARGIN`` away from zero, far more than the
+implementations' logit difference (the largest flipping logit seen on the
+card was 0.0028).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerf_sandbox_tpu.core.encoding import positional_encoding as jpe
+from nerf_sandbox_tpu.core.encoding import vanilla_encoders
+from nerf_sandbox_tpu.models import mlp as jmlp
+from nerf_sandbox_tpu.models.forward import nerf_forward_pass as jforward
+from nerf_sandbox_tpu.ops.fused_raymarch import fused_raymarch as jfused
+from nerf_sandbox_tpu_torch.core.encoding import positional_encoding
+from nerf_sandbox_tpu_torch.models import mlp as tmlp
+from nerf_sandbox_tpu_torch.ops import fused_mlp as tfm
+from nerf_sandbox_tpu_torch.ops import fused_raymarch as tfr
+
+JCFG = jmlp.NeRFConfig(enc_pos_dim=63, enc_dir_dim=27, n_layers=8,
+                       hidden_dim=256, skip_pos=4)
+TCFG = tmlp.NeRFConfig(enc_pos_dim=63, enc_dir_dim=27, n_layers=8,
+                       hidden_dim=256, skip_pos=4)
+TOLS = {"comp": 2e-2, "w": 2e-2, "acc": 2e-2, "depth": 0.1}
+KINK_MARGIN = 0.01
+
+
+def _model(seed):
+    params = jmlp.init_nerf_params(jax.random.PRNGKey(seed), JCFG)
+    m = tmlp.NeRFMLP(TCFG, device="cpu")
+    m.load_state_dict(tmlp.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    return params, m
+
+
+def _rays(b=37, n=21, seed=0):
+    rng = np.random.RandomState(seed)
+    o = rng.uniform(-1, 1, (b, 3)).astype(np.float32)
+    d = rng.normal(size=(b, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    norms = rng.uniform(0.8, 1.3, (b,)).astype(np.float32)
+    z = np.sort(rng.uniform(2.0, 6.0, (b, n)), axis=-1).astype(np.float32)
+    return o, d, norms, z
+
+
+def _port(m, o, d, norms, z, **kw):
+    pos_b, dir_b = vanilla_encoders()
+    t = torch.from_numpy
+    enc_dir = positional_encoding(t(d), dir_b)
+    out = tfr.fused_raymarch(m, t(o), t(d), t(z), t(norms), enc_dir, pos_b,
+                             device="cpu", **kw)
+    return [x.numpy() for x in out]
+
+
+def _last_logit_margin(m, o, d, norms, z):
+    pos_b, dir_b = vanilla_encoders()
+    t = torch.from_numpy
+    pts = t(o) + t(d) * (t(z[:, -1:]) * t(norms[:, None]))
+    out = tfm.fused_nerf_apply(m, positional_encoding(pts, pos_b),
+                               positional_encoding(t(d), dir_b), device="cpu")
+    return float(out[:, 3].abs().min())
+
+
+def _jax_oracles(params, o, d, norms, z, **kw):
+    pos_b, dir_b = vanilla_encoders()
+    enc_dir = jpe(jnp.asarray(d), jnp.asarray(dir_b))
+    fused = jfused(params, JCFG, jnp.asarray(o), jnp.asarray(d), jnp.asarray(z),
+                   jnp.asarray(norms), enc_dir, pos_b, interpret=True, **kw)
+    fwd = jforward(params, JCFG, jnp.asarray(o), jnp.asarray(d), jnp.asarray(z),
+                   pos_bands=jnp.asarray(pos_b), dir_bands=jnp.asarray(dir_b),
+                   white_bkgd=kw.get("white_bkgd", True),
+                   ray_norms=jnp.asarray(norms), viewdirs_world_unit=jnp.asarray(d),
+                   sigma_activation=kw.get("sigma_activation", "relu"),
+                   infinite_last_bin=kw.get("infinite_last_bin", True),
+                   compute_dtype=jnp.bfloat16)
+    return fused, fwd
+
+
+def _assert_close(got, want, what):
+    for g, w, name in zip(got, want, TOLS):
+        np.testing.assert_allclose(g, np.asarray(w), atol=TOLS[name],
+                                   err_msg=f"{what}: {name}")
+
+
+def test_plain_matches_jax_fused_and_forward():
+    params, m = _model(0)
+    rays = _rays()
+    assert _last_logit_margin(m, *rays) > KINK_MARGIN
+    got = _port(m, *rays)
+    assert got[0].shape == (37, 3) and got[1].shape == (37, 21)
+    fused, fwd = _jax_oracles(params, *rays)
+    _assert_close(got, fused, "vs JAX fused_raymarch")
+    _assert_close(got, fwd, "vs JAX nerf_forward_pass(bf16)")
+
+
+@pytest.mark.parametrize("kw", [{"white_bkgd": False},
+                                {"sigma_activation": "softplus"},
+                                {"infinite_last_bin": False}],
+                         ids=["black_bkgd", "softplus", "finite_last_bin"])
+def test_plain_options_match_jax(kw):
+    params, m = _model(1)
+    rays = _rays(b=16, n=16, seed=3)
+    if kw.get("infinite_last_bin", True) and "sigma_activation" not in kw:
+        assert _last_logit_margin(m, *rays) > KINK_MARGIN
+    got = _port(m, *rays, **kw)
+    fused, fwd = _jax_oracles(params, *rays, **kw)
+    _assert_close(got, fused, f"{kw} vs JAX fused_raymarch")
+    _assert_close(got, fwd, f"{kw} vs JAX nerf_forward_pass(bf16)")
+
+
+def test_plain_padding_independence():
+    """Rays never mix: a ray's outputs do not depend on the batch around it
+    (the kernel pads rays to its 16-ray blocks; the plain version chunks)."""
+    _, m = _model(2)
+    o, d, norms, z = _rays(b=40, n=19, seed=5)
+    full = _port(m, o, d, norms, z)
+    part = _port(m, o[:7], d[:7], norms[:7], z[:7])
+    for f, p in zip(full, part):
+        np.testing.assert_allclose(f[:7], p, atol=1e-5)
+
+
+def test_deltas_and_fixup():
+    z = torch.tensor([[2.0, 3.0, 5.0]])
+    n = torch.tensor([2.0])
+    np.testing.assert_array_equal(tfr._deltas(z, n, True).numpy(),
+                                  [[2.0, 4.0, 2e10]])
+    np.testing.assert_array_equal(tfr._deltas(z, n, False).numpy(),
+                                  [[2.0, 4.0, 0.0]])
+    raw = torch.tensor([[float("nan"), 1.5, -0.5, 0.5, 2.0]])
+    comp, w, acc, depth = tfr.fixup_outputs(raw, torch.tensor([[float("inf")]]))
+    np.testing.assert_array_equal(comp.numpy(), [[0.0, 1.0, 0.0]])
+    assert w.item() == 0.0 and acc.item() == 0.5
+    np.testing.assert_allclose(depth.numpy(), [[4.0]], rtol=1e-6)
+
+
+def test_unported_branches_raise():
+    _, m = _model(0)
+    o, d, norms, z = _rays(b=4, n=8)
+    for kw, match in (({"scene_contraction": True}, "K2c"),
+                      ({"kp_cfg": object()}, "K3"),
+                      ({"ipe_radii": np.ones(4)}, "K4")):
+        with pytest.raises(NotImplementedError, match=match):
+            _port(m, o, d, norms, z, **kw)

@@ -1,0 +1,110 @@
+"""The port stands alone: no module of ``nerf_sandbox_tpu_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package, and the entry points run
+on CUDA unless the caller asks for the CPU — with no CUDA device they raise.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "nerf_sandbox_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "nerf_sandbox_tpu")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None)
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 15
+    bad = [(f.relative_to(ROOT).as_posix(), root) for f in files
+           for root in _imported_roots(f) if root in FORBIDDEN]
+    assert not bad, f"forbidden imports: {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
+            for p in sorted(PORT.rglob("*.py"))]
+    mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m for m in mods]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from nerf_sandbox_tpu_torch.core.encoding import vanilla_encoders
+    from nerf_sandbox_tpu_torch.models.forward import nerf_forward_pass
+    from nerf_sandbox_tpu_torch.models.mlp import NeRFConfig, NeRFMLP
+    from nerf_sandbox_tpu_torch.ops.fused_mlp import fused_nerf_apply
+    from nerf_sandbox_tpu_torch.ops.fused_raymarch import fused_raymarch
+    from nerf_sandbox_tpu_torch.render.renderer import (
+        EvalHyper, make_tile_renderer, render_pose, render_rays_chunked)
+
+    cfg = NeRFConfig(63, 27, n_layers=3, hidden_dim=128, skip_pos=1)
+    pos_b, dir_b = vanilla_encoders()
+    model = NeRFMLP(cfg, device="cpu")
+    tile = make_tile_renderer(EvalHyper(model=cfg, nc_eval=4, nf_eval=4),
+                              pos_b, dir_b, device="cpu")
+    ro = torch.zeros(2, 3)
+    rd = torch.tensor([[0.0, 0.0, -1.0]] * 2)
+    z = torch.linspace(2, 6, 4).expand(2, 4)
+    K = np.array([[2.0, 0, 1], [0, 2.0, 1], [0, 0, 1]], np.float32)
+    calls = {
+        "NeRFMLP": lambda: NeRFMLP(cfg),
+        "make_tile_renderer": lambda: make_tile_renderer(
+            EvalHyper(model=cfg), pos_b, dir_b),
+        "render_pose": lambda: render_pose(tile, model, model, np.eye(4), 2, 2, K),
+        "render_rays_chunked": lambda: render_rays_chunked(
+            tile, model, model, ro, rd, torch.ones(2, 1), rd),
+        "nerf_forward_pass": lambda: nerf_forward_pass(
+            model, ro, rd, z, pos_bands=pos_b, dir_bands=dir_b, white_bkgd=True),
+        "fused_raymarch": lambda: fused_raymarch(
+            model, ro, rd, z, torch.ones(2), torch.zeros(2, 27), pos_b),
+        "fused_nerf_apply": lambda: fused_nerf_apply(
+            model, torch.zeros(2, 63), torch.zeros(2, 27)),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # the same calls run on the CPU when asked to
+    out = render_pose(tile, model, model, np.eye(4), 2, 2, K, device="cpu")
+    assert out["rgb"].shape == (2, 2, 3)
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """``chip_smoke.py`` has no CPU path: without a card it prints nothing on
+    stdout and exits non-zero."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py would run")
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and r.stdout == ""
