@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port's eval render path on one NVIDIA GPU.
+"""Drive the PyTorch / CUDA port's eval render paths on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; one CUDA card
+
+Two configurations: Blender vanilla (frequency encoder, 8x256 MLP) and the
+contracted K-Planes-hybrid unbounded-360 one (planes (64, 128) x 8, lines
+512 x 16, hybrid L=6, aabb 2.0, mip-NeRF 360 contraction, disparity-linear
+samples from 0.125 to 22.5, an 8x256 MLP on the 71 encoder columns).
 
 Phases (any failure exits non-zero):
 
@@ -16,14 +21,28 @@ Phases (any failure exits non-zero):
    (16384 rays x 192 merged samples of frame 1): comp, w, acc 2e-2 and depth
    0.1; early ray termination (eps 1e-4) against none within 1e-3, on the
    reference weights and on a dense variant where ERT fires; timed;
+4b. the 360 configuration with seeded weights, on one real fine tile of its
+   frame 1 (16384 x 192): K2 with K2c + K3 against its plain version at
+   phase 4's tolerances; K3's encode-only entry on the same (contracted)
+   points within one bf16 ulp; K2c alone (the frequency model, contracted)
+   and K3t (a 4-D grid, time_res 8, time tables N(1, 0.1), folded at
+   t = 0.37, finite last bin; Σw·z held at 2e-2 x far) against their plain
+   versions; each timed, with its bound;
 5. the slice: ``render_pose`` of two 800x800 Blender-style poses through K2
    (``EvalHyper`` vanilla, ``use_kernel=True``) and one
    ``nerf_forward_pass(use_kernel=True)`` over a fine tile through K1, with
    the launch counters zeroed just before and read just after; frames must
    be finite and in [0, 1], and frame 1 rendered through the plain path
    (``use_kernel=False``) must agree within 2e-2 and at >= 40 dB PSNR;
-6. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
-   main path, max |diff| against its plain version, its time, the plain
+5b. the same for the 360 configuration: two 800x800 orbit poses at radius 1
+   through K2's k-planes + contraction instantiation (80 launches a frame),
+   and one k-planes ``nerf_forward_pass(use_kernel=True)`` through K3's
+   encode-only entry and K1, counters zeroed just before and read just
+   after (per route: phase 5 must run only the frequency instantiation,
+   5b only the k-planes one); frame 1 against the plain path as in 5; then
+   one frame of phase 4b's 4-D model at t = 0.37, every launch folding;
+6. a ``{"kernels": [...]}`` JSON line with each kernel's launches on its
+   path, max |diff| against its plain version, its time, the plain
    version's time and the card's bound for the same work; then the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -44,11 +63,13 @@ import sys
 import time
 
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, H100 SXM
+H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores, H100 SXM
 H100_HBM_BYTES = 3.35e12        # HBM3 bandwidth, H100 SXM
 N_POSES = 2
 IMG = 800
 FOCAL = 1111.1
 EVAL_CHUNK = 16384
+NEAR_360, FAR_360 = 0.125, 22.5   # RESULTS.md "norm": the rig scaled to r = 1
 
 
 class PhaseError(Exception):
@@ -86,10 +107,41 @@ def mlp_macs_per_row(cfg):
             + (H + cfg.enc_dir_dim) * (H // 2) + (H // 2) * 3)
 
 
-def bound(flops, nbytes):
-    t_ops = flops / H100_BF16_FLOPS * 1e3
+def bound(flops, nbytes, fp32_flops=0.0):
+    """Least time (ms) for the work: the larger of the bytes over HBM's rate
+    and the operations over their unit's peak (bf16 tensor cores, fp32)."""
+    t_ops = max(flops / H100_BF16_FLOPS, fp32_flops / H100_FP32_FLOPS) * 1e3
     t_bytes = nbytes / H100_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kplanes_fp32_flops(kcfg):
+    """fp32 operations of K3 per sample: per bilinear lookup 4 corners x F
+    multiply-adds plus the second contraction, the products, the 4-D folds,
+    the lines, and the hybrid channels (a sin or cos counted as one)."""
+    F, Fl, n_s = kcfg.plane_features, kcfg.line_features, len(kcfg.plane_res)
+    per_scale = 3 * (4 * 2 * F + 3 * F) + 2 * F
+    if kcfg.time_res:
+        per_scale += 3 * (2 * 2 * F + F)
+    lines = 3 * 2 * 2 * Fl + 2 * Fl
+    hybrid = 3 + 6 * kcfg.hybrid_freqs * 2 if kcfg.hybrid_freqs else 0
+    return n_s * per_scale + lines + hybrid + 3 * (n_s + 1) * 8
+
+
+def ptxas_summary(log):
+    """Each compiled kernel's registers and spills, from ``-Xptxas -v``."""
+    rows, entry, props = {}, None, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+            rows[entry] = []
+        elif "Function properties for" in ln:
+            props = ln.rsplit(" ", 1)[-1].strip()
+        elif "spill" in ln and props == entry and entry:
+            rows[entry].append(ln.strip())
+        elif "Used" in ln and "registers" in ln and entry:
+            rows[entry].append(ln.split(":", 1)[-1].strip())
+    return [f"{n}: {'; '.join(v)}" for n, v in rows.items()]
 
 
 def last_bin_kink(pairs):
@@ -123,8 +175,365 @@ def blender_pose(i):
     return c2w
 
 
+def orbit_360_pose(i):
+    """The Blender orbit pose scaled to radius 1, the mip-NeRF 360 "norm"
+    frame of RESULTS.md (camera rig inside the contraction's unit ball)."""
+    c2w = blender_pose(i)
+    c2w[:3, 3] /= 4.0
+    return c2w
+
+
 def max_diff(a, b):
     return float((a - b).abs().max())
+
+
+def ulp_ok(got, want):
+    """Within one bf16 ulp: |got - want| <= 2^-7 max(1, |want|)."""
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= 2.0 ** -7 * want.abs().clamp(min=1.0)).all())
+
+
+def kp_configs():
+    """The 360 configuration at full width: (KPlanesConfig, NeRFConfig)."""
+    from nerf_sandbox_tpu_torch.models.kplanes import KPlanesConfig
+    from nerf_sandbox_tpu_torch.models.mlp import NeRFConfig
+    kcfg = KPlanesConfig((64, 128), 8, 512, 16, aabb_scale=2.0, hybrid_freqs=6)
+    return kcfg, NeRFConfig(kcfg.out_dim, 27, 8, 256, 4)
+
+
+def phase_360_tile(torch, dev, card, packed_freq, kernels):
+    """4b: K2c, K3 and K3t on one real fine tile of the 360 configuration,
+    against their plain versions, timed. → context for phase 5b."""
+    import numpy as np
+
+    from nerf_sandbox_tpu_torch.core.encoding import (
+        positional_encoding, scene_contract, vanilla_encoders)
+    from nerf_sandbox_tpu_torch.core.rays import get_camera_rays_grid
+    from nerf_sandbox_tpu_torch.core.sampling import (
+        merge_z_samples, resample_midpoints, stratified_samples)
+    from nerf_sandbox_tpu_torch.models.mlp import NeRFMLP
+    from nerf_sandbox_tpu_torch.ops import fused_mlp as fm
+    from nerf_sandbox_tpu_torch.ops import fused_raymarch as fr
+    from nerf_sandbox_tpu_torch.ops import kplanes_encode as ke
+
+    kcfg, cfg = kp_configs()
+    check(cfg.enc_pos_dim == 71, f"k-planes width {cfg.enc_pos_dim} != 71")
+    model_c = NeRFMLP(cfg, generator=torch.Generator().manual_seed(1),
+                      grid_cfg=kcfg, device=dev)
+    model_f = NeRFMLP(cfg, generator=torch.Generator().manual_seed(2),
+                      grid_cfg=kcfg, device=dev)
+    pos_bands, dir_bands = vanilla_encoders()
+    Kmat = np.array([[FOCAL, 0, IMG / 2], [0, FOCAL, IMG / 2], [0, 0, 1]],
+                    np.float32)
+    rays = get_camera_rays_grid(
+        torch.from_numpy(Kmat).to(dev), torch.from_numpy(orbit_360_pose(1)).to(dev),
+        image_h=IMG, image_w=IMG, pixel_center=True)
+    sl = slice(IMG * IMG // 2, IMG * IMG // 2 + EVAL_CHUNK)   # mid-frame tile
+    ro, rd = rays.o_march[sl].contiguous(), rays.d_march_unit[sl].contiguous()
+    rn, vd = rays.d_march_norm[sl].contiguous(), rays.d_world_unit[sl].contiguous()
+    enc_dir = positional_encoding(vd, dir_bands)
+    mlp_c, mlp_f = fm.pack_nerf_params(model_c), fm.pack_nerf_params(model_f)
+    grid_c = ke.pack_kplanes(model_c.pos_grid, kcfg)
+    grid_f = ke.pack_kplanes(model_f.pos_grid, kcfg)
+    ep = fm._enc_pads(cfg)[0]
+    kw = dict(kp_cfg=kcfg, scene_contraction=True)
+    with torch.no_grad():
+        zc = stratified_samples(NEAR_360, FAR_360, 64, lindisp=True,
+                                device=dev).expand(EVAL_CHUNK, 64)
+        _, w_c, _, _ = fr.fused_raymarch(mlp_c, ro, rd, zc, rn, enc_dir, None,
+                                         kp_params=grid_c, **kw)
+        z = merge_z_samples(zc, resample_midpoints(zc, w_c, 128,
+                                                   deterministic=True)).contiguous()
+    B, N = z.shape
+    dt = fr._deltas(z, rn, True)
+    names = ("comp", "w", "acc", "depth")
+    pts = scene_contract((ro[:, None, :] + rd[:, None, :] * (z * rn)[..., None])
+                         .reshape(-1, 3))
+    last = pts.reshape(B, N, 3)[:, -1]
+
+    def hold(tag, got, want, kink):
+        ok = ~kink
+        errs = {n: max_diff(g[ok], w[ok]) for n, g, w in zip(names, got, want)}
+        errs["w[:-1]"] = max_diff(got[1][:, :-1], want[1][:, :-1])
+        n_kink = int(kink.sum())
+        print(f"[{tag}] tile {B}x{N}: max|diff| vs plain {errs}; {n_kink} rays "
+              f"at the last-bin kink, whole-tile comp max|diff| "
+              f"{max_diff(got[0], want[0]):.3g}", flush=True)
+        check(n_kink <= 0.05 * B, f"{tag}: {n_kink} of {B} rays at the kink")
+        for n, tol in zip(names + ("w[:-1]",), (2e-2, 2e-2, 2e-2, 0.1, 2e-2)):
+            check(np.isfinite(errs[n]) and errs[n] <= tol,
+                  f"{tag} {n} max |diff| {errs[n]} > {tol}")
+        return max(errs.values())
+
+    # K2 with K2c + K3, against its plain version
+    got = fr.fused_raymarch(mlp_f, ro, rd, z, rn, enc_dir, None,
+                            kp_params=grid_f, **kw)
+    want = fr.fixup_outputs(*fr.fused_raymarch_plain(
+        mlp_f, ro, rd, z, dt, rn, enc_dir, None, contract=True, kp=grid_f))
+    torch.cuda.synchronize()
+    P = cfg.enc_pos_dim
+    kink, bands = last_bin_kink([(
+        fm.fused_nerf_apply(mlp_f, ke.fused_kplanes_encode(grid_f, last, ep)[:, :P],
+                            enc_dir)[:, 3],
+        fm.fused_nerf_apply_plain(mlp_f, ke.kplanes_encode_plain(grid_f, last, ep)[:, :P],
+                                  enc_dir)[:, 3])])
+    print(f"[K2c+K3] kink band |logit| < {bands[0]:.3g}", flush=True)
+    kp_err = hold("K2c+K3", got, want, kink)
+
+    # K3 on its own, on the same contracted points
+    enc_k = ke.fused_kplanes_encode(grid_f, pts, ep)
+    enc_p = ke.kplanes_encode_plain(grid_f, pts, ep)
+    torch.cuda.synchronize()
+    enc_err = max_diff(enc_k.float(), enc_p.float())
+    n_off = int((enc_k != enc_p).sum())
+    print(f"[K3] encode-only {pts.shape[0]} rows x {ep}: max|diff| {enc_err:.3g}, "
+          f"{n_off} of {enc_k.numel()} values differ (one bf16 ulp allowed)",
+          flush=True)
+    check(ulp_ok(enc_k, enc_p), "K3 encode-only differs by more than one bf16 ulp")
+    check(not enc_k[:, P:].float().any(), "K3 padding columns are not zero")
+
+    # K2c alone: the frequency model with contraction, on the same tile
+    got_c = fr.fused_raymarch(packed_freq, ro, rd, z, rn, enc_dir, pos_bands,
+                              scene_contraction=True)
+    want_c = fr.fixup_outputs(*fr.fused_raymarch_plain(
+        packed_freq, ro, rd, z, dt, rn, enc_dir, pos_bands, contract=True))
+    enc_last = positional_encoding(last, pos_bands)
+    kink_c, _ = last_bin_kink([(
+        fm.fused_nerf_apply(packed_freq, enc_last, enc_dir)[:, 3],
+        fm.fused_nerf_apply_plain(packed_freq, enc_last, enc_dir)[:, 3])])
+    c_err = hold("K2c", got_c, want_c, kink_c)
+
+    # K3t: a 4-D grid folded at t = 0.37, its time tables moved off their
+    # neutral 1.0 to the spatial tables' N(1, 0.1)
+    kcfg4 = kcfg._replace(time_res=8)
+    model_t = NeRFMLP(cfg, generator=torch.Generator().manual_seed(3),
+                      grid_cfg=kcfg4, device=dev)
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for nm, tab in model_t.pos_grid.named_parameters():
+            if nm == "line_t" or nm.split("_")[-1] in ("xt", "yt", "zt"):
+                tab += 0.1 * torch.randn(tab.shape, generator=g).to(dev)
+    mlp_t = fm.pack_nerf_params(model_t)
+    grid_t = ke.pack_kplanes(model_t.pos_grid, kcfg4, t=0.37)
+    got_t = fr.fused_raymarch(mlp_t, ro, rd, z, rn, enc_dir, None, kp_params=grid_t,
+                              kp_cfg=kcfg4, scene_contraction=True,
+                              infinite_last_bin=False)
+    want_t = fr.fixup_outputs(*fr.fused_raymarch_plain(
+        mlp_t, ro, rd, z, fr._deltas(z, rn, False), rn, enc_dir, None,
+        contract=True, kp=grid_t))
+    enc_t_ok = ulp_ok(ke.fused_kplanes_encode(grid_t, pts, ep),
+                      ke.kplanes_encode_plain(grid_t, pts, ep))
+    torch.cuda.synchronize()
+    # finite last bin: depth held as sum(w z) at the weight tolerance x z_far
+    t_errs = {n: max_diff(g_, w_) for n, g_, w_ in zip(names[:3], got_t, want_t)}
+    t_errs["sum_wz"] = max_diff(got_t[3] * got_t[2], want_t[3] * want_t[2])
+    print(f"[K3t] 4-D fold (time_res 8, t 0.37), finite last bin: max|diff| "
+          f"{t_errs}; encode-only within one bf16 ulp: {enc_t_ok}", flush=True)
+    check(enc_t_ok, "K3t encode-only differs by more than one bf16 ulp")
+    for n, tol in zip(("comp", "w", "acc", "sum_wz"), (2e-2, 2e-2, 2e-2, 2e-2 * FAR_360)):
+        check(np.isfinite(t_errs[n]) and t_errs[n] <= tol,
+              f"K3t {n} max |diff| {t_errs[n]} > {tol}")
+
+    # times, bounds and the kernels' entries
+    def k2(mlp, zz, **a):
+        return lambda: fr.fused_raymarch(mlp, ro, rd, zz, rn, enc_dir, **a)
+
+    kp_ms = cuda_ms(torch, k2(mlp_f, z, pos_bands=None, kp_params=grid_f, **kw))
+    kp_coarse_ms = cuda_ms(torch, k2(mlp_f, zc, pos_bands=None, kp_params=grid_f, **kw))
+    kp_plain_ms = cuda_ms(torch, lambda: fr.fused_raymarch_plain(
+        mlp_f, ro, rd, z, dt, rn, enc_dir, None, contract=True, kp=grid_f))
+    tfold_ms = cuda_ms(torch, k2(mlp_t, z, pos_bands=None, kp_params=grid_t,
+                                 kp_cfg=kcfg4, scene_contraction=True,
+                                 infinite_last_bin=False))
+    tfold_plain_ms = cuda_ms(torch, lambda: fr.fused_raymarch_plain(
+        mlp_t, ro, rd, z, fr._deltas(z, rn, False), rn, enc_dir, None,
+        contract=True, kp=grid_t))
+    freq_ms = cuda_ms(torch, k2(packed_freq, z, pos_bands=pos_bands))
+    c_ms = cuda_ms(torch, k2(packed_freq, z, pos_bands=pos_bands,
+                             scene_contraction=True))
+    c_plain_ms = cuda_ms(torch, lambda: fr.fused_raymarch_plain(
+        packed_freq, ro, rd, z, dt, rn, enc_dir, pos_bands, contract=True))
+    enc_ms = cuda_ms(torch, lambda: ke.fused_kplanes_encode(grid_f, pts, ep))
+    enc_plain_ms = cuda_ms(torch, lambda: ke.kplanes_encode_plain(grid_f, pts, ep))
+    Q = B * N
+    ray_bytes = B * (7 + 27) * 4 + Q * 4 * 3 + B * 5 * 4
+    kp_flops = kplanes_fp32_flops(kcfg) * Q
+    b_kp = bound(2.0 * mlp_macs_per_row(cfg) * Q,
+                 ray_bytes + mlp_f.flat.numel() * 2 + grid_f.flat.numel() * 2,
+                 kp_flops + 20.0 * Q)
+    b_c = bound(2.0 * mlp_macs_per_row(packed_freq.cfg) * Q,
+                ray_bytes + packed_freq.flat.numel() * 2, 20.0 * Q)
+    b_enc = bound(0.0, Q * 3 * 4 + Q * ep * 2 + grid_f.flat.numel() * 2, kp_flops)
+    b_coarse = bound(2.0 * mlp_macs_per_row(cfg) * B * 64, 0.0)
+    print(f"[K2c+K3] fine tile kernel {kp_ms:.3f} ms, plain {kp_plain_ms:.3f} ms, "
+          f"bound {b_kp[0]:.3f} ms ({b_kp[1]}); coarse tile {B}x64 kernel "
+          f"{kp_coarse_ms:.3f} ms, bound {b_coarse[0]:.3f} ms; K3t (4-D fold) "
+          f"fine tile {tfold_ms:.3f} ms, plain {tfold_plain_ms:.3f} ms | {card}",
+          flush=True)
+    print(f"[K2c] same tile, frequency model: with contraction {c_ms:.3f} ms, "
+          f"without {freq_ms:.3f} ms, plain {c_plain_ms:.3f} ms, bound "
+          f"{b_c[0]:.3f} ms ({b_c[1]})", flush=True)
+    print(f"[K3] encode-only {Q} rows: kernel {enc_ms:.3f} ms, plain "
+          f"{enc_plain_ms:.3f} ms, bound {b_enc[0]:.3f} ms ({b_enc[1]})", flush=True)
+    src = "nerf_sandbox_tpu_torch/csrc/"
+    kernels["fused_raymarch_contract"] = dict(
+        name="fused_raymarch_contract", route="cuda", source=src + "fused_raymarch.cu",
+        replaces="nerf_sandbox_tpu/ops/fused_raymarch.py:406", max_abs_err=c_err,
+        ms=c_ms, plain_ms=c_plain_ms, bound_ms=b_c[0], bound_by=b_c[1],
+        library_ms=None)
+    kernels["fused_raymarch_kplanes"] = dict(
+        name="fused_raymarch_kplanes", route="cuda", source=src + "fused_raymarch.cu",
+        replaces="nerf_sandbox_tpu/ops/fused_raymarch.py:211",
+        max_abs_err=max(kp_err, *(t_errs[n] for n in names[:3])), ms=kp_ms,
+        plain_ms=kp_plain_ms,
+        bound_ms=b_kp[0], bound_by=b_kp[1], library_ms=None)
+    kernels["kplanes_encode"] = dict(
+        name="kplanes_encode", route="cuda", source=src + "kplanes_encode.cu",
+        replaces="nerf_sandbox_tpu/ops/fused_raymarch.py:211", max_abs_err=enc_err,
+        ms=enc_ms, plain_ms=enc_plain_ms, bound_ms=b_enc[0], bound_by=b_enc[1],
+        library_ms=None)
+    return dict(cfg=cfg, kcfg=kcfg, model_c=model_c, model_f=model_f, Kmat=Kmat,
+                ro=ro, rd=rd, rn=rn, vd=vd, z=z, got=got, kink=kink,
+                kp_ms=kp_ms, kp_coarse_ms=kp_coarse_ms, kcfg4=kcfg4,
+                model_t=model_t)
+
+
+def phase_360_slice(torch, dev, card, ctx):
+    """5b: two 800x800 frames of the 360 configuration through K2c + K3, and
+    one k-planes ``nerf_forward_pass`` through K3 + K1, counted; frame 1
+    against the plain path. → the kernels' launches on this path."""
+    import numpy as np
+
+    from nerf_sandbox_tpu_torch.core.encoding import (
+        positional_encoding, scene_contract, vanilla_encoders)
+    from nerf_sandbox_tpu_torch.core.rays import get_camera_rays_grid
+    from nerf_sandbox_tpu_torch.models.forward import nerf_forward_pass
+    from nerf_sandbox_tpu_torch.ops import fused_mlp as fm
+    from nerf_sandbox_tpu_torch.ops import fused_raymarch as fr
+    from nerf_sandbox_tpu_torch.ops import kplanes_encode as ke
+    from nerf_sandbox_tpu_torch.render.renderer import (
+        EvalHyper, make_tile_renderer, render_pose)
+    from nerf_sandbox_tpu_torch.render.validation import compute_psnr
+
+    cfg, kcfg, model_c, model_f = (ctx[k] for k in ("cfg", "kcfg", "model_c", "model_f"))
+    Kmat = ctx["Kmat"]
+    pos_bands, dir_bands = vanilla_encoders()
+    hyper = EvalHyper(model=cfg, samp_near=NEAR_360, samp_far=FAR_360, lindisp=True,
+                      scene_contraction=True, pos_encoder="kplanes", enc_cfg=kcfg,
+                      use_kernel=True)
+    tile_k = make_tile_renderer(hyper, None, dir_bands, device=dev)
+    tile_p = make_tile_renderer(hyper._replace(use_kernel=False), None, dir_bands,
+                                device=dev)
+    torch.cuda.synchronize()
+    fr.reset_launches()
+    ke.fused_kplanes_encode.launches = 0
+    fm.fused_nerf_apply.launches = 0
+    frames, secs = [], []
+    for i in range(N_POSES):
+        t0 = time.perf_counter()
+        frames.append(render_pose(tile_k, model_c, model_f, orbit_360_pose(i),
+                                  IMG, IMG, Kmat, eval_chunk=EVAL_CHUNK, device=dev))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    with torch.no_grad():
+        fwd = nerf_forward_pass(model_f, ctx["ro"], ctx["rd"], ctx["z"],
+                                pos_bands=pos_bands, dir_bands=dir_bands,
+                                white_bkgd=True, ray_norms=ctx["rn"],
+                                viewdirs_world_unit=ctx["vd"], infinite_last_bin=True,
+                                compute_dtype=torch.bfloat16, use_kernel=True,
+                                pos_encoder="kplanes", enc_cfg=kcfg,
+                                scene_contraction=True, device=dev)
+    torch.cuda.synchronize()
+    routes = dict(fr.fused_raymarch.route_launches)
+    launches = {"fused_raymarch_kplanes": routes["kplanes"],
+                "fused_raymarch_contract": routes["contract"],
+                "kplanes_encode": ke.fused_kplanes_encode.launches,
+                "fused_mlp": fm.fused_nerf_apply.launches}
+    n_tiles = -(-IMG * IMG // EVAL_CHUNK)
+    expect = 2 * n_tiles * N_POSES
+    print(f"[slice 360] launches on this path: {launches}, K2 routes {routes} "
+          f"(k-planes + contraction expected {expect}, {2 * n_tiles} a frame)",
+          flush=True)
+    check(routes["kplanes"] == expect and routes["contract"] == expect,
+          f"K2 k-planes/contraction launched {routes}, expected {expect}")
+    check(routes["freq"] == 0 and routes["tfold"] == 0,
+          f"the 360 path ran another K2 instantiation: {routes}")
+    check(launches["kplanes_encode"] >= 1 and launches["fused_mlp"] >= 1,
+          "K3's encode-only entry or K1 was not launched on the 360 path")
+    for k, f in enumerate(frames):
+        for key in ("rgb", "acc", "depth"):
+            check(np.isfinite(f[key]).all(), f"360 frame {k} {key} not finite")
+        check(f["rgb"].min() >= 0.0 and f["rgb"].max() <= 1.0,
+              f"360 frame {k} rgb outside [0, 1]")
+    ok = ~ctx["kink"]
+    fwd_err = max_diff(fwd[0][ok], ctx["got"][0][ok])
+    print(f"[slice 360] nerf_forward_pass(kplanes, use_kernel=True) vs K2 on the "
+          f"tile, off the kink: comp max|diff| {fwd_err:.3g}", flush=True)
+    check(fwd_err <= 2e-2, f"K3 + K1 forward vs K2 comp max |diff| {fwd_err}")
+
+    t0 = time.perf_counter()
+    plain = render_pose(tile_p, model_c, model_f, orbit_360_pose(1), IMG, IMG,
+                        Kmat, eval_chunk=EVAL_CHUNK, device=dev)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    # the last sample of both passes is at z = far: pixels whose logit there
+    # is within the kernel-vs-plain band of 0 are held by the frame PSNR
+    rays = get_camera_rays_grid(
+        torch.from_numpy(Kmat).to(dev), torch.from_numpy(orbit_360_pose(1)).to(dev),
+        image_h=IMG, image_w=IMG, pixel_center=True)
+    P = cfg.enc_pos_dim
+    with torch.no_grad():
+        pts = scene_contract(rays.o_march + rays.d_march_unit
+                             * (FAR_360 * rays.d_march_norm))
+        enc_d = positional_encoding(rays.d_world_unit, dir_bands)
+        pairs = []
+        for m in (model_c, model_f):
+            kp = ke.pack_kplanes(m.pos_grid, kcfg)
+            pairs.append((
+                fm.fused_nerf_apply(m, ke.fused_kplanes_encode(kp, pts, 128)[:, :P],
+                                    enc_d)[:, 3],
+                m(m.pos_grid(pts, compute_dtype=torch.bfloat16), enc_d,
+                  compute_dtype=torch.bfloat16)[:, 3]))
+        kink, bands = last_bin_kink(pairs)
+    kink = kink.reshape(IMG, IMG).cpu().numpy()
+    drgb = np.abs(frames[1]["rgb"] - plain["rgb"]).max(-1)
+    d_rgb = float(drgb[~kink].max())
+    psnr = compute_psnr(frames[1]["rgb"], plain["rgb"])
+    s_frame = sum(secs[1:]) / max(1, len(secs) - 1)
+    k2_s = n_tiles * (ctx["kp_coarse_ms"] + ctx["kp_ms"]) / 1e3
+    print(f"[slice 360] {N_POSES} frames {IMG}x{IMG}: {secs} s; steady "
+          f"{s_frame:.3f} s/frame = {IMG * IMG / s_frame:.0f} rays/s; plain "
+          f"path {plain_s:.3f} s/frame | {card}", flush=True)
+    print(f"[slice 360] K2 share of a frame: {n_tiles} x (coarse "
+          f"{ctx['kp_coarse_ms']:.3f} + fine {ctx['kp_ms']:.3f} ms) = {k2_s:.3f} s "
+          f"of {s_frame:.3f} s ({100 * k2_s / s_frame:.1f}%)", flush=True)
+    print(f"[slice 360] frame 1 kernel vs plain path: max|drgb| {d_rgb:.3g} off "
+          f"the kink (tol 2e-2); {int(kink.sum())} pixels at the kink "
+          f"(|logit| < {bands}), whole-frame max|drgb| {float(drgb.max()):.3g}, "
+          f"PSNR {psnr:.2f} dB (min 40)", flush=True)
+    check(kink.sum() <= 0.05 * kink.size,
+          f"360 frame 1: {int(kink.sum())} pixels at the last-bin kink")
+    check(d_rgb <= 2e-2, f"360 frame 1 kernel vs plain max |drgb| {d_rgb} > 2e-2")
+    check(psnr >= 40.0, f"360 frame 1 kernel vs plain PSNR {psnr:.2f} dB < 40")
+
+    # one frame of the 4-D model at a fixed time: every K2 launch folds
+    tile_t = make_tile_renderer(hyper._replace(enc_cfg=ctx["kcfg4"]), None,
+                                dir_bands, device=dev)
+    torch.cuda.synchronize()
+    fr.reset_launches()
+    t0 = time.perf_counter()
+    f4 = render_pose(tile_t, ctx["model_t"], ctx["model_t"], orbit_360_pose(1),
+                     IMG, IMG, Kmat, eval_chunk=EVAL_CHUNK, time=0.37, device=dev)
+    torch.cuda.synchronize()
+    s4 = time.perf_counter() - t0
+    routes4 = dict(fr.fused_raymarch.route_launches)
+    print(f"[slice 360, 4-D] one frame at t = 0.37: {s4:.3f} s, K2 routes "
+          f"{routes4} (fold expected {2 * n_tiles})", flush=True)
+    check(routes4["tfold"] == routes4["kplanes"] == 2 * n_tiles,
+          f"4-D frame: K2 routes {routes4}, expected {2 * n_tiles} folds")
+    check(np.isfinite(f4["rgb"]).all() and f4["rgb"].min() >= 0.0
+          and f4["rgb"].max() <= 1.0, "4-D frame rgb not finite or outside [0, 1]")
+    return launches
 
 
 def run(torch, root):
@@ -163,8 +572,9 @@ def run(torch, root):
     print(f"[build] {time.perf_counter() - t0:.2f} s for "
           f"{sorted(report) or 'nothing (already built)'}", flush=True)
     for src, rep in report.items():
-        regs = [ln.strip() for ln in rep["ptxas"].splitlines() if "registers" in ln]
-        print(f"[build] {src}: {rep['seconds']:.2f} s; {'; '.join(regs)}", flush=True)
+        print(f"[build] {src}: {rep['seconds']:.2f} s", flush=True)
+        for line in ptxas_summary(rep["ptxas"]):
+            print(f"[build]   {line}", flush=True)
 
     cfg = NeRFConfig(enc_pos_dim=63, enc_dir_dim=27, n_layers=8,
                      hidden_dim=256, skip_pos=4)
@@ -284,6 +694,9 @@ def run(torch, root):
           f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); coarse "
           f"tile {B}x{zc.shape[1]} kernel {coarse_ms:.3f} ms", flush=True)
 
+    # ---- 4b. the 360 configuration: K2c, K3 and K3t on one fine tile ----
+    ctx360 = phase_360_tile(torch, dev, card, packed_f, kernels)
+
     # ---- 5. the slice: render_pose through K2, nerf_forward_pass through K1 ----
     hyper = EvalHyper(model=cfg, use_kernel=True)
     tile_k = make_tile_renderer(hyper, pos_bands, dir_bands, device=dev)
@@ -291,7 +704,7 @@ def run(torch, root):
                                 dir_bands, device=dev)
     torch.cuda.synchronize()
     fm.fused_nerf_apply.launches = 0
-    fr.fused_raymarch.launches = 0
+    fr.reset_launches()
     frames, secs = [], []
     for i in range(N_POSES):
         t0 = time.perf_counter()
@@ -308,14 +721,17 @@ def run(torch, root):
                                 compute_dtype=torch.bfloat16, use_kernel=True,
                                 device=dev)
     torch.cuda.synchronize()
+    routes = dict(fr.fused_raymarch.route_launches)
     launches = {"fused_mlp": fm.fused_nerf_apply.launches,
-                "fused_raymarch": fr.fused_raymarch.launches}
+                "fused_raymarch": routes["freq"]}
     n_tiles = -(-IMG * IMG // EVAL_CHUNK)
-    print(f"[slice] launches on the main path: {launches} (K2 expected "
-          f"{2 * n_tiles * N_POSES})", flush=True)
-    check(launches["fused_raymarch"] == 2 * n_tiles * N_POSES,
-          f"K2 launched {launches['fused_raymarch']} times, expected "
-          f"{2 * n_tiles * N_POSES}")
+    print(f"[slice] launches on the main path: {launches}, K2 routes {routes} "
+          f"(K2 expected {2 * n_tiles * N_POSES})", flush=True)
+    check(fr.fused_raymarch.launches == routes["freq"] == 2 * n_tiles * N_POSES,
+          f"K2 launched {fr.fused_raymarch.launches} times ({routes}), expected "
+          f"{2 * n_tiles * N_POSES} frequency launches")
+    check(routes["kplanes"] == routes["contract"] == 0,
+          f"the Blender path ran another K2 instantiation: {routes}")
     check(launches["fused_mlp"] >= 1, "K1 was not launched on the main path")
     for k, f in enumerate(frames):
         for key in ("rgb", "acc", "depth"):
@@ -365,9 +781,12 @@ def run(torch, root):
     check(d_rgb <= 2e-2, f"frame 1 kernel vs plain max |drgb| {d_rgb} > 2e-2")
     check(psnr >= 40.0, f"frame 1 kernel vs plain PSNR {psnr:.2f} dB < 40")
 
+    # ---- 5b. the 360 slice: render_pose through K2c + K3 ----
+    launches_360 = phase_360_slice(torch, dev, card, ctx360)
+
     # ---- 6. kernels line ----
     for key, k in kernels.items():
-        k["launches"] = launches[key]
+        k["launches"] = launches[key] if key in launches else launches_360[key]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{f: k[f] for f in order}

@@ -1,7 +1,8 @@
-"""Sinusoidal (frequency) positional encoding.
+"""Sinusoidal (frequency) positional encoding and the mip-NeRF 360 contraction.
 
-Port of the frequency parts of ``nerf_sandbox_tpu/core/encoding.py``
-(reference ``nerf_sandbox/source/models/encoders.py:6-123``):
+Port of the frequency and contraction parts of
+``nerf_sandbox_tpu/core/encoding.py`` (reference
+``nerf_sandbox/source/models/encoders.py:6-123``):
 gamma(x) = [x?, sin(f_k x), cos(f_k x)] with the reference's feature order —
 all sin blocks for every band first, then all cos blocks:
 ``[x?, sin(f0 x0..2), sin(f1 x0..2), ..., cos(f0 x0..2), ...]``.
@@ -64,6 +65,27 @@ def encode_dirs(vdirs: torch.Tensor, dir_bands, include_input: bool = True,
             f"dir_encoder={dir_encoder!r}: spherical harmonics are ROADMAP "
             "queue 1, P7 item 6 (SH dirs)")
     return positional_encoding(vdirs, dir_bands, include_input=include_input)
+
+
+def scene_contract(x: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    """mip-NeRF 360 scene contraction (Barron et al. 2022, eq. 10).
+
+    contract(x) = x for ||x|| <= 1, else (2 - 1/||x||) * x/||x||: all of R^3
+    lands in the radius-2 ball. Branchless, with the norm floored at ``eps``
+    (JAX core/encoding.py:283-300).
+    """
+    n = torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=eps)
+    return torch.where(n <= 1.0, x, (2.0 - 1.0 / n) * (x / n))
+
+
+def scene_uncontract(c: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Inverse of :func:`scene_contract` on the open radius-2 ball; inputs at
+    ||c|| >= 2 are clamped just inside the shell (JAX core/encoding.py:303-320).
+    """
+    n = torch.clamp(torch.linalg.vector_norm(c, dim=-1, keepdim=True), min=eps)
+    n_c = torch.clamp(n, max=2.0 - eps)
+    r = 1.0 / (2.0 - n_c)
+    return torch.where(n <= 1.0, c, (c / n) * r)
 
 
 def vanilla_encoders():

@@ -1,10 +1,14 @@
-// K2: the fused eval ray-march, frequency encoder: sample points -> sin/cos
-// encode -> skip MLP -> sigmoid rgb, relu/softplus sigma -> transmittance
-// composite, with optional early ray termination (ERT).
+// K2: the fused eval ray-march: sample points -> [K2c: mip-NeRF 360
+// contraction] -> sin/cos encode or [K3: k-planes encode] -> skip MLP ->
+// sigmoid rgb, relu/softplus sigma -> transmittance composite, with optional
+// early ray termination (ERT).
 //
 // Replaces the TPU kernel nerf_sandbox_tpu/ops/fused_raymarch.py:fused_raymarch
-// (bodies _kernel and _kernel_chunk_body, pl.pallas_call at :667), frequency
-// branch. What it computes, not its TPU layout:
+// (bodies _kernel and _kernel_chunk_body, pl.pallas_call at :667): its
+// frequency branch, its contraction branch (:406-413) and its k-planes
+// branch (_kp_encode_body, kplanes_encode.cuh). The encoder and the
+// contraction are template parameters, so each of the four instantiations
+// carries only its own code. What it computes, not its TPU layout:
 //  * the TPU carries per-ray state across SEQUENTIAL grid steps; CUDA blocks
 //    run in no order, so one block owns RAYS rays and loops over their
 //    samples itself, SPC samples of each ray per 64-row MLP tile, with
@@ -16,13 +20,16 @@
 //    (the build has no fast math: the top band 2^9 puts arguments at
 //    thousands of radians), columns [x, sin(f0 xyz).., cos(f0 xyz)..] padded;
 //  * padded rays of the last block are masked out of the ERT test instead
-//    of starting at log T = -80.
+//    of starting at log T = -80;
+//  * K2c warps the points as they are placed, before either encoder, with
+//    the branchless formula of core/encoding.py:scene_contract; z and dt
+//    stay metric.
 //
 // Bound on the H100: the MLP's 1.19 MFLOP per sample against ~10 bytes of
 // HBM traffic per sample, so the tensor cores set the bound (mlp_tile.cuh
 // describes the MLP's design); the encode and composite are per-thread fp32
 // work between the MLP tiles, and ERT removes whole tiles of work.
-#include "mlp_tile.cuh"
+#include "kplanes_encode.cuh"
 
 using namespace nerf;
 
@@ -54,8 +61,26 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+enum Encoder { ENC_FREQ = 0, ENC_KPLANES = 1 };
+
+// mip-NeRF 360 contraction of one point (K2c): p for |p| <= 1, else
+// (2 - 1/|p|) * p/|p|, with |p| floored at 1e-9.
+__device__ __forceinline__ void contract_point(float (&p)[3]) {
+  const float n = fmaxf(sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(p[0], p[0]),
+                                                  __fmul_rn(p[1], p[1])),
+                                        __fmul_rn(p[2], p[2]))),
+                        1e-9f);
+  if (!(n <= 1.0f)) {
+    const float s = __fsub_rn(2.0f, __fdiv_rn(1.0f, n));
+#pragma unroll
+    for (int c = 0; c < 3; ++c) p[c] = __fmul_rn(s, __fdiv_rn(p[c], n));
+  }
+}
+
+template <int ENC, bool CONTRACT>
 __global__ void __launch_bounds__(N_THREADS)
-fused_raymarch_kernel(const MarchArgs a, const MlpArgs P) {
+fused_raymarch_kernel(const MarchArgs a, const MlpArgs P,
+                      const __grid_constant__ KpArgs k) {
   extern __shared__ __align__(128) unsigned char smem[];
   const MlpSmemLayout L(P.H, P.EP, P.ED);
   const MarchSmemLayout M(L);
@@ -109,22 +134,28 @@ fused_raymarch_kernel(const MarchArgs a, const MlpArgs P) {
       const int rl = tid / SPC, n = n0 + tid % SPC, r = ray0 + rl;
       const float z = (r < a.B && n < N) ? a.z[size_t(r) * N + n] : 0.0f;
       const float zm = z * geo[rl * 7 + 6];
-      for (int c = 0; c < 3; ++c)
-        pts[tid * 3 + c] = geo[rl * 7 + c] + geo[rl * 7 + 3 + c] * zm;
+      float p[3];
+      for (int c = 0; c < 3; ++c) p[c] = geo[rl * 7 + c] + geo[rl * 7 + 3 + c] * zm;
+      if (CONTRACT) contract_point(p);
+      for (int c = 0; c < 3; ++c) pts[tid * 3 + c] = p[c];
     }
     __syncthreads();
-    for (int i = tid; i < TILE_M * P.EP; i += N_THREADS) {
-      const int q = i / P.EP, c = i % P.EP;
-      float v = 0.0f;
-      if (c < n_id) {
-        v = pts[q * 3 + c];
-      } else if (c < n_enc) {
-        const int j = c - n_id;
-        const int jj = j < half ? j : j - half;
-        const float arg = pts[q * 3 + jj % 3] * a.bands[jj / 3];
-        v = j < half ? sinf(arg) : cosf(arg);
+    if (ENC == ENC_KPLANES) {
+      kplanes_encode_rows(k, pts, TILE_M, S.enc, lde, P.EP);
+    } else {
+      for (int i = tid; i < TILE_M * P.EP; i += N_THREADS) {
+        const int q = i / P.EP, c = i % P.EP;
+        float v = 0.0f;
+        if (c < n_id) {
+          v = pts[q * 3 + c];
+        } else if (c < n_enc) {
+          const int j = c - n_id;
+          const int jj = j < half ? j : j - half;
+          const float arg = pts[q * 3 + jj % 3] * a.bands[jj / 3];
+          v = j < half ? sinf(arg) : cosf(arg);
+        }
+        S.enc[q * lde + c] = __float2bfloat16_rn(v);
       }
-      S.enc[q * lde + c] = __float2bfloat16_rn(v);
     }
     __syncthreads();
 
@@ -165,17 +196,45 @@ fused_raymarch_kernel(const MarchArgs a, const MlpArgs P) {
   }
 }
 
+template <int ENC, bool CONTRACT>
+static int launch_march(const MarchArgs& a, const MlpArgs& P, const KpArgs& k,
+                        size_t smem, int blocks, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_raymarch_kernel<ENC, CONTRACT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (blocks == 0) return 0;
+  fused_raymarch_kernel<ENC, CONTRACT><<<blocks, N_THREADS, smem, stream>>>(a, P, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// kp_pack null: the frequency encoder with bands/include_input. Otherwise
+// the k-planes encoder of the packed tables (kplanes_encode.cuh:
+// make_kp_args), its hybrid channels from kp_bands; bands are unused.
 extern "C" int nerf_fused_raymarch(
     const void* rays_o, const void* rays_d, const void* ray_norms,
     const void* enc_dir, const void* z, const void* dt, const float* bands,
     int n_bands, int include_input, const void* wpack,
     const long long* offsets, int B, int N, int D, int H, int EP, int ED,
     int n_layers, int skip_pos, int softplus, int white_bkgd, int use_ert,
-    float log_eps, void* out_ray, void* out_w, void* stream) {
-  if (!mlp_shape_ok(H, EP, ED, n_layers, skip_pos) || n_bands < 0 ||
-      n_bands > MAX_BANDS || (include_input ? 3 : 0) + 6 * n_bands > EP ||
-      D > ED || B < 0 || N < 1)
+    float log_eps, int contract, const void* kp_pack,
+    const long long* kp_offsets, const int* kp_res, int kp_scales, int kp_F,
+    int kp_L, int kp_Fl, int kp_tfold, float kp_box, const float* kp_bands,
+    int kp_n_bands, void* out_ray, void* out_w, void* stream) {
+  const bool kp = kp_pack != nullptr;
+  KpArgs k{};
+  if (!mlp_shape_ok(H, EP, ED, n_layers, skip_pos) || D > ED || B < 0 || N < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (kp) {
+    if (!make_kp_args(k, kp_pack, kp_offsets, kp_res, kp_scales, kp_F, kp_L,
+                      kp_Fl, kp_tfold, kp_box, kp_bands, kp_n_bands) ||
+        kp_row_dim(k) > EP)
+      return static_cast<int>(cudaErrorInvalidValue);
+    n_bands = 0;
+  } else if (n_bands < 0 || n_bands > MAX_BANDS ||
+             (include_input ? 3 : 0) + 6 * n_bands > EP) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   MarchArgs a;
   a.rays_o = static_cast<const float*>(rays_o);
   a.rays_d = static_cast<const float*>(rays_d);
@@ -194,13 +253,11 @@ extern "C" int nerf_fused_raymarch(
   const MlpArgs P = make_mlp_args(wpack, offsets, H, EP, ED, n_layers, skip_pos);
   const MlpSmemLayout L(H, EP, ED);
   const MarchSmemLayout M(L);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_raymarch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(M.total));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (B == 0) return 0;
-  const dim3 grid((B + RAYS - 1) / RAYS);
-  fused_raymarch_kernel<<<grid, N_THREADS, M.total,
-                          static_cast<cudaStream_t>(stream)>>>(a, P);
-  return static_cast<int>(cudaGetLastError());
+  const int blocks = (B + RAYS - 1) / RAYS;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kp)
+    return contract ? launch_march<ENC_KPLANES, true>(a, P, k, M.total, blocks, st)
+                    : launch_march<ENC_KPLANES, false>(a, P, k, M.total, blocks, st);
+  return contract ? launch_march<ENC_FREQ, true>(a, P, k, M.total, blocks, st)
+                  : launch_march<ENC_FREQ, false>(a, P, k, M.total, blocks, st);
 }

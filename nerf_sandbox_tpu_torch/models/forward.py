@@ -1,11 +1,15 @@
-"""Stateless NeRF march + composite at fixed z samples (frequency encoder).
+"""Stateless NeRF march + composite at fixed z samples.
 
 Port of ``nerf_sandbox_tpu/models/forward.py:nerf_forward_pass`` (reference
 ``nerf_sandbox/source/utils/render_utils.py:171-283``) for eval:
-``pts = o + d_unit * (z * ||d_raw||)``, unit WORLD view directions per
-sample, fp32 encode, the MLP in ``compute_dtype``, sigmoid rgb, relu/softplus
-sigma, then ``volume_render_rays``. ``use_kernel=True`` routes the MLP to the
-K1 kernel (``ops/fused_mlp.py``) as the JAX ``use_pallas`` does.
+``pts = o + d_unit * (z * ||d_raw||)``, optionally contracted (mip-NeRF 360;
+only the encoder sees the warped points, z stays metric), unit WORLD view
+directions per sample, the frequency encode in fp32 or the k-planes encode
+(the model's ``pos_grid``, in ``compute_dtype``, per-ray times for 4-D
+grids), the MLP in ``compute_dtype``, sigmoid rgb, relu/softplus sigma, then
+``volume_render_rays``. ``use_kernel=True`` routes the MLP to the K1 kernel
+(``ops/fused_mlp.py``) as the JAX ``use_pallas`` does, and the k-planes
+encode to K3's encode-only kernel (``ops/kplanes_encode.py``, bf16 rows).
 
 The encoders and options of the JAX function that are not ported raise.
 """
@@ -14,24 +18,24 @@ from __future__ import annotations
 
 import torch
 
-from nerf_sandbox_tpu_torch.core.encoding import encode_dirs, positional_encoding
+from nerf_sandbox_tpu_torch.core.encoding import (
+    encode_dirs, positional_encoding, scene_contract)
 from nerf_sandbox_tpu_torch.core.integrator import volume_render_rays
 from nerf_sandbox_tpu_torch.device import resolve_device
+from nerf_sandbox_tpu_torch.models.kplanes import kplanes_encode
 from nerf_sandbox_tpu_torch.models.mlp import NeRFMLP
-from nerf_sandbox_tpu_torch.ops.fused_mlp import fused_nerf_apply
+from nerf_sandbox_tpu_torch.ops.fused_mlp import _enc_pads, fused_nerf_apply
+from nerf_sandbox_tpu_torch.ops.kplanes_encode import (
+    fused_kplanes_encode, pack_kplanes)
 
 
-def check_ported_forward(*, pos_encoder: str = "freq", scene_contraction: bool = False,
-                         ipe: bool = False, dir_encoder: str = "freq") -> None:
+def check_ported_forward(*, pos_encoder: str = "freq", ipe: bool = False,
+                         dir_encoder: str = "freq") -> None:
     """Raise for the forward-pass options this package does not port yet."""
-    if pos_encoder != "freq":
-        item = {"kplanes": "P7 item 2", "hashgrid": "P7 item 8"}.get(
-            pos_encoder, "P7")
+    if pos_encoder not in ("freq", "kplanes"):
+        item = {"hashgrid": "P7 item 8"}.get(pos_encoder, "P7")
         raise NotImplementedError(
             f"pos_encoder={pos_encoder!r} is ROADMAP queue 1, {item}")
-    if scene_contraction:
-        raise NotImplementedError(
-            "scene contraction is ROADMAP queue 1, P7 item 1 (kernel K2c)")
     if ipe:
         raise NotImplementedError(
             "IPE is ROADMAP queue 1, P7 item 5 (kernel K4)")
@@ -59,18 +63,20 @@ def nerf_forward_pass(
     compute_dtype: torch.dtype = torch.float32,
     use_kernel: bool = False,
     pos_encoder: str = "freq",
+    enc_cfg=None,                    # KPlanesConfig for pos_encoder="kplanes"
     scene_contraction: bool = False,
     ipe: bool = False,
     dir_encoder: str = "freq",
+    t: torch.Tensor | None = None,   # (B,) normalised times (4-D k-planes)
     device=None,
 ):
     """→ (composite_rgb (B,3), weights (B,N), acc (B,1), depth (B,1)).
 
     Runs on ``cuda`` unless ``device="cpu"``; the model must be on that
-    device. ``use_kernel=True`` runs the MLP through K1 (bf16).
+    device. ``use_kernel=True`` runs the MLP through K1 (bf16) and a k-planes
+    encode through K3, which folds a 4-D grid at one time (all ``t`` equal).
     """
-    check_ported_forward(pos_encoder=pos_encoder,
-                         scene_contraction=scene_contraction, ipe=ipe,
+    check_ported_forward(pos_encoder=pos_encoder, ipe=ipe,
                          dir_encoder=dir_encoder)
     if raw_noise_std > 0.0:
         raise NotImplementedError(
@@ -87,6 +93,8 @@ def nerf_forward_pass(
         ray_norms = ray_norms.to(dev, torch.float32)
         z_metric = z_vals * ray_norms.reshape(B, 1)
     pts = rays_o[:, None, :] + rays_d_unit[:, None, :] * z_metric[..., None]
+    if scene_contraction:
+        pts = scene_contract(pts)
 
     if viewdirs_world_unit is not None:
         vd = viewdirs_world_unit.to(dev, torch.float32)
@@ -98,8 +106,12 @@ def nerf_forward_pass(
 
     # Encode in fp32 (sin/cos of large 2^k x need the fp32 mantissa), then
     # run the MLP in compute_dtype.
-    enc_pos = positional_encoding(pts.reshape(-1, 3), pos_bands,
-                                  include_input=pos_include_input)
+    if pos_encoder == "kplanes":
+        enc_pos = _kplanes_rows(model, pts.reshape(-1, 3), enc_cfg, t, B, N,
+                                compute_dtype, use_kernel, dev)
+    else:
+        enc_pos = positional_encoding(pts.reshape(-1, 3), pos_bands,
+                                      include_input=pos_include_input)
     enc_dir = encode_dirs(vdirs.reshape(-1, 3), dir_bands,
                           include_input=dir_include_input,
                           dir_encoder=dir_encoder)
@@ -119,3 +131,25 @@ def nerf_forward_pass(
         rgb.reshape(B, N, 3).float(), sigma.reshape(B, N).float(), z_vals,
         ray_norm=ray_norms, white_bkgd=white_bkgd,
         infinite_last_bin=infinite_last_bin)
+
+
+def _kplanes_rows(model: NeRFMLP, pts: torch.Tensor, enc_cfg, t, B: int,
+                  N: int, compute_dtype, use_kernel: bool, dev) -> torch.Tensor:
+    """The k-planes encode of (B·N, 3) points for ``nerf_forward_pass``."""
+    grid = model.pos_grid
+    if grid is None or enc_cfg is None:
+        raise ValueError("pos_encoder='kplanes' needs enc_cfg and a model "
+                         "built with grid_cfg (its pos_grid)")
+    t_ray = None
+    if enc_cfg.time_res > 0:
+        if t is None:
+            raise ValueError("4-D k-planes (time_res > 0) needs per-ray times t")
+        t_ray = t.to(dev, torch.float32).reshape(B)
+    if use_kernel:
+        ep_pad, _ = _enc_pads(model.cfg)
+        rows = fused_kplanes_encode(pack_kplanes(grid, enc_cfg, t=t_ray), pts,
+                                    ep_pad, device=dev)
+        return rows[:, :enc_cfg.out_dim]
+    t01 = None if t_ray is None else t_ray[:, None].expand(B, N).reshape(-1)
+    return kplanes_encode(grid, pts, enc_cfg, compute_dtype=compute_dtype,
+                          t01=t01)

@@ -13,7 +13,10 @@ Port of ``nerf_sandbox_tpu/models/mlp.py`` (reference
   (``tests/golden/mlp_state.npz``) loads with ``load_state_dict``.
 
 Weights are stored the PyTorch way, (out, in); :func:`params_from_jax`
-converts the JAX package's (in, out) pytree.
+converts the JAX package's (in, out) pytree. A model with a grid encoder
+carries it as the submodule ``pos_grid`` (a :class:`KPlanes`, the JAX
+``params["pos_grid"]``); a frequency-encoded model has none, so its state
+dict is the reference's.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from torch import nn
 
 from nerf_sandbox_tpu_torch.device import resolve_device
+from nerf_sandbox_tpu_torch.models.kplanes import KPlanes, KPlanesConfig
 
 
 class NeRFConfig(NamedTuple):
@@ -65,16 +69,26 @@ def _uniform(generator: torch.Generator, shape, bound: float) -> torch.Tensor:
 
 
 class NeRFMLP(nn.Module):
-    """The skip MLP. ``forward(enc_pos, enc_dir, compute_dtype=None)`` → (Q, 4)."""
+    """The skip MLP. ``forward(enc_pos, enc_dir, compute_dtype=None)`` → (Q, 4).
+
+    ``grid_cfg`` (a :class:`KPlanesConfig` whose ``out_dim`` is
+    ``cfg.enc_pos_dim``) adds the k-planes encoder as ``self.pos_grid``,
+    drawn from the same generator after the MLP; otherwise ``pos_grid`` is
+    None.
+    """
 
     def __init__(self, cfg: NeRFConfig, *, generator: torch.Generator | None = None,
                  near: float = 2.0, far: float = 6.0,
                  initial_acc_opacity: float | None = None,
-                 sigma_activation: str = "softplus", device=None):
+                 sigma_activation: str = "softplus",
+                 grid_cfg: KPlanesConfig | None = None, device=None):
         super().__init__()
         if cfg.app_dim:
             raise NotImplementedError(
                 "appearance codes (app_dim > 0) are ROADMAP queue 1, P7 item 7")
+        if grid_cfg is not None and grid_cfg.out_dim != cfg.enc_pos_dim:
+            raise ValueError(f"k-planes out_dim {grid_cfg.out_dim} != "
+                             f"enc_pos_dim {cfg.enc_pos_dim}")
         self.cfg = cfg
         dev = resolve_device(device)
         H = cfg.hidden_dim
@@ -90,6 +104,8 @@ class NeRFMLP(nn.Module):
         self.reset_parameters(generator, near=near, far=far,
                               initial_acc_opacity=initial_acc_opacity,
                               sigma_activation=sigma_activation)
+        self.pos_grid = (None if grid_cfg is None else
+                         KPlanes(grid_cfg, generator=generator, device=dev))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None, *,
@@ -168,6 +184,8 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     (in, out)) → this module's state dict (weights (out, in)).
 
     The inverse of ``params_from_torch_state_dict`` (JAX ``mlp.py:211-228``).
+    A k-planes ``pos_grid`` dict becomes ``pos_grid.<table>`` entries, array
+    for array (load it into a model built with ``grid_cfg``).
     """
     def lin(prefix, leaf):
         return {f"{prefix}.weight": torch.from_numpy(
@@ -175,14 +193,22 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 f"{prefix}.bias": torch.from_numpy(
                     np.array(leaf["b"], np.float32))}
 
-    extra = set(tree) - {"trunk", "feature", "sigma_out", "color_fc", "color_out"}
+    extra = set(tree) - {"trunk", "feature", "sigma_out", "color_fc",
+                         "color_out", "pos_grid"}
     if extra:
         raise NotImplementedError(
-            f"parameters {sorted(extra)}: grid encoders and appearance codes "
-            "are ROADMAP queue 1, P7")
+            f"parameters {sorted(extra)}: appearance codes are ROADMAP "
+            "queue 1, P7 item 7")
     sd = {}
     for i, layer in enumerate(tree["trunk"]):
         sd.update(lin(f"mlp.{i}", layer))
     for name in ("feature", "sigma_out", "color_fc", "color_out"):
         sd.update(lin(name, tree[name]))
+    grid = tree.get("pos_grid")
+    if grid is not None:
+        if not isinstance(grid, dict):
+            raise NotImplementedError(
+                "a hash-grid pos_grid is ROADMAP queue 1, P7 item 8")
+        for name, arr in grid.items():
+            sd[f"pos_grid.{name}"] = torch.from_numpy(np.array(arr, np.float32))
     return sd

@@ -1,25 +1,29 @@
-"""K2: the fused eval ray-march (``csrc/fused_raymarch.cu``), frequency encoder.
+"""K2: the fused eval ray-march (``csrc/fused_raymarch.cu``), with K2c and K3.
 
 Replaces the TPU kernel ``nerf_sandbox_tpu/ops/fused_raymarch.py:fused_raymarch``
-(Pallas bodies ``_kernel`` / ``_kernel_chunk_body``), frequency branch: per
-ray, ``pts = o + d̂·z·‖d‖`` → fp32 sin/cos encode → the K1 MLP → sigmoid rgb,
-relu/softplus σ → ``α = 1-exp(-clip(σΔ,0,60))`` → ``T = exp(Σ log(1-α+1e-10))``
-→ per-sample weights and per-ray Σw, Σw·z, Σw·rgb (+ white background),
-with optional early ray termination (ERT).
+(Pallas bodies ``_kernel`` / ``_kernel_chunk_body``): per ray,
+``pts = o + d̂·z·‖d‖`` → [K2c: the mip-NeRF 360 contraction of the points]
+→ the fp32 sin/cos encode or [K3: the k-planes encode, ``ops/kplanes_encode.py``]
+→ the K1 MLP → sigmoid rgb, relu/softplus σ → ``α = 1-exp(-clip(σΔ,0,60))``
+→ ``T = exp(Σ log(1-α+1e-10))`` → per-sample weights and per-ray Σw, Σw·z,
+Σw·rgb (+ white background), with optional early ray termination (ERT).
 
-Bound on the H100: the MLP's 1.19 MFLOP of bf16 work per sample against
-about 10 bytes of HBM traffic per sample (z, Δ in; weight out), so the
-tensor cores set the bound: one 16384×192 fine tile is 3.73 TFLOP, 3.8 ms at
-989 TFLOP/s. Design (``csrc/fused_raymarch.cu``): one block owns 16 rays and
-loops over their samples 4 at a time as 64-row MLP tiles, with the per-ray
-accumulators in registers — the TPU's sequential-grid carry becomes a loop
-inside the block — and ERT ends a block once all its rays have T < eps.
+Bound on the H100: the MLP's ~1.2 MFLOP of bf16 work per sample against
+about 10 bytes of HBM traffic per sample, so the tensor cores set the bound:
+one 16384×192 fine tile is 3.73 TFLOP (3.76 at the k-planes width 71), 3.8
+ms at 989 TFLOP/s. Design (``csrc/fused_raymarch.cu``): one block owns 16
+rays and loops over their samples 4 at a time as 64-row MLP tiles, with the
+per-ray accumulators in registers — the TPU's sequential-grid carry becomes a
+loop inside the block — and ERT ends a block once all its rays have T < eps.
+The encoder and the contraction are template parameters of the kernel.
 
 :func:`fused_raymarch_plain` is the same function in plain PyTorch with the
 kernel's bf16 rounding points; it marches every sample (ERT changes each
 output by less than ``ert_eps`` per channel). :func:`fused_raymarch` takes it
 only for CPU tensors; for CUDA tensors it launches the kernel or raises, and
-counts the launch in ``fused_raymarch.launches``.
+counts the launch in ``fused_raymarch.launches`` and, per route (``freq``,
+``kplanes``, ``contract``, ``tfold``: the branches the launch ran), in
+``fused_raymarch.route_launches``.
 """
 
 from __future__ import annotations
@@ -29,16 +33,20 @@ import ctypes
 import numpy as np
 import torch
 
-from nerf_sandbox_tpu_torch.core.encoding import positional_encoding
+from nerf_sandbox_tpu_torch.core.encoding import positional_encoding, scene_contract
 from nerf_sandbox_tpu_torch.device import resolve_device
 from nerf_sandbox_tpu_torch.models.mlp import NeRFMLP
 from nerf_sandbox_tpu_torch.ops import cuda_build
 from nerf_sandbox_tpu_torch.ops.fused_mlp import (
     PLAIN_ROWS, PackedMLP, _enc_pads, _ptr, as_packed, mlp_rows_plain,
     offsets_arg, pad_cols_bf16)
+from nerf_sandbox_tpu_torch.ops.kplanes_encode import (
+    KP_C_ARGTYPES, PackedKPlanes, check_kernel_shapes, kp_c_args,
+    kplanes_encode_plain, pack_kplanes)
 
 RAYS_PER_BLOCK = 16          # csrc/fused_raymarch.cu: RAYS
 MAX_BANDS = 32               # csrc/fused_raymarch.cu: MAX_BANDS
+ROUTES = ("freq", "kplanes", "contract", "tfold")
 
 
 def _deltas(z_vals: torch.Tensor, ray_norms: torch.Tensor,
@@ -54,11 +62,14 @@ def fused_raymarch_plain(packed: PackedMLP, rays_o, rays_d_unit, z_vals, dt,
                          ray_norms, enc_dir, pos_bands, *,
                          pos_include_input: bool = True,
                          sigma_activation: str = "relu",
-                         white_bkgd: bool = True):
+                         white_bkgd: bool = True, contract: bool = False,
+                         kp: PackedKPlanes | None = None):
     """K2's plain PyTorch version, on any device → (raw (B, 5), w (B, N)).
 
     ``raw`` holds Σw·rgb (+ background), clipped Σw and Σw·z per ray, as the
-    kernel writes them. Rays are processed in chunks of about 2^18 samples.
+    kernel writes them. ``contract`` warps the points (K2c); ``kp`` encodes
+    them with the packed k-planes tables (K3) instead of ``pos_bands``. Rays
+    are processed in chunks of about 2^18 samples.
     """
     B, N = z_vals.shape
     ep_pad, ed_pad = _enc_pads(packed.cfg)
@@ -70,10 +81,16 @@ def fused_raymarch_plain(packed: PackedMLP, rays_o, rays_d_unit, z_vals, dt,
         z = z_vals[sl]
         b = z.shape[0]
         zm = z * ray_norms[sl].reshape(b, 1)
-        pts = rays_o[sl, None, :] + rays_d_unit[sl, None, :] * zm[..., None]
-        enc = positional_encoding(pts.reshape(-1, 3), pos_bands,
-                                  include_input=pos_include_input)
-        ep = pad_cols_bf16(enc.to(torch.bfloat16), ep_pad)
+        pts = (rays_o[sl, None, :] + rays_d_unit[sl, None, :] * zm[..., None]
+               ).reshape(-1, 3)
+        if contract:
+            pts = scene_contract(pts)
+        if kp is not None:
+            ep = kplanes_encode_plain(kp, pts, ep_pad)
+        else:
+            enc = positional_encoding(pts, pos_bands,
+                                      include_input=pos_include_input)
+            ep = pad_cols_bf16(enc.to(torch.bfloat16), ep_pad)
         ed = ed_all[sl].repeat_interleave(N, dim=0)
         out = mlp_rows_plain(packed, ep, ed)
         rgb = torch.sigmoid(out[:, :3]).reshape(b, N, 3)
@@ -96,7 +113,8 @@ def fused_raymarch_plain(packed: PackedMLP, rays_o, rays_d_unit, z_vals, dt,
 
 def _launch(packed: PackedMLP, rays_o, rays_d_unit, z_vals, dt, ray_norms,
             enc_dir, bands: np.ndarray, *, pos_include_input: bool,
-            sigma_activation: str, white_bkgd: bool, ert_eps: float):
+            sigma_activation: str, white_bkgd: bool, ert_eps: float,
+            contract: bool, kp: PackedKPlanes | None):
     """Launch K2 on the current stream (inputs on one CUDA device)."""
     cfg = packed.cfg
     B, N = z_vals.shape
@@ -104,25 +122,36 @@ def _launch(packed: PackedMLP, rays_o, rays_d_unit, z_vals, dt, ray_norms,
     f32 = [t.to(torch.float32).contiguous()
            for t in (rays_o, rays_d_unit, ray_norms.reshape(B), enc_dir,
                      z_vals, dt)]
-    if any(t.device != dev or t.device.type != "cuda" for t in f32 + [packed.flat]):
+    on_card = f32 + [packed.flat] + ([kp.flat] if kp is not None else [])
+    if any(t.device != dev or t.device.type != "cuda" for t in on_card):
         raise ValueError("fused_raymarch: all tensors must be on one CUDA device")
     ro, rd, rn, ed, z, d = f32
     if ro.shape != (B, 3) or rd.shape != (B, 3) or ed.shape != (B, cfg.enc_dir_dim):
         raise ValueError("fused_raymarch: bad ray shapes "
                          f"{tuple(ro.shape)}, {tuple(rd.shape)}, {tuple(ed.shape)}")
-    if bands.size > MAX_BANDS:
-        raise ValueError(f"fused_raymarch: at most {MAX_BANDS} bands")
-    if (3 if pos_include_input else 0) + 6 * bands.size != cfg.enc_pos_dim:
-        raise ValueError("fused_raymarch: pos_bands do not give enc_pos_dim")
+    ep_pad, ed_pad = _enc_pads(cfg)
+    if kp is not None:
+        check_kernel_shapes(kp, ep_pad)
+        if kp.cfg.out_dim != cfg.enc_pos_dim:
+            raise ValueError("fused_raymarch: the k-planes rows do not give "
+                             "enc_pos_dim")
+        kp_args = kp_c_args(kp)
+        bands = np.zeros(0, np.float32)
+    else:
+        if bands.size > MAX_BANDS:
+            raise ValueError(f"fused_raymarch: at most {MAX_BANDS} bands")
+        if (3 if pos_include_input else 0) + 6 * bands.size != cfg.enc_pos_dim:
+            raise ValueError("fused_raymarch: pos_bands do not give enc_pos_dim")
+        kp_args = [None, None, None, 0, 0, 0, 0, 0, 0.0, None, 0]
     out_ray = torch.empty((B, 5), dtype=torch.float32, device=dev)
     out_w = torch.empty((B, N), dtype=torch.float32, device=dev)
-    ep_pad, ed_pad = _enc_pads(cfg)
     lib = cuda_build.load("fused_raymarch")
     fn = lib.nerf_fused_raymarch
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_float)]
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
                    + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 11
-                   + [ctypes.c_float] + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_float, ctypes.c_int] + KP_C_ARGTYPES
+                   + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(_ptr(ro), _ptr(rd), _ptr(rn), _ptr(ed), _ptr(z), _ptr(d),
@@ -133,18 +162,23 @@ def _launch(packed: PackedMLP, rays_o, rays_d_unit, z_vals, dt, ray_norms,
              int(sigma_activation == "softplus"), int(white_bkgd),
              int(ert_eps > 0.0),
              float(np.log(ert_eps)) if ert_eps > 0.0 else 0.0,
+             int(contract), *kp_args,
              _ptr(out_ray), _ptr(out_w), ctypes.c_void_p(stream))
     cuda_build.check(lib, err, "fused_raymarch kernel launch")
     fused_raymarch.launches += 1
+    routes = fused_raymarch.route_launches
+    routes["kplanes" if kp is not None else "freq"] += 1
+    routes["contract"] += int(contract)
+    routes["tfold"] += int(kp is not None and kp.t is not None)
     return out_ray, out_w
 
 
 def fused_raymarch(model: NeRFMLP | PackedMLP, rays_o, rays_d_unit, z_vals, ray_norms,
-                   enc_dir, pos_bands, *, pos_include_input: bool = True,
+                   enc_dir, pos_bands=None, *, pos_include_input: bool = True,
                    sigma_activation: str = "relu", white_bkgd: bool = True,
                    infinite_last_bin: bool = True, ert_eps: float = 0.0,
                    scene_contraction: bool = False, kp_params=None,
-                   kp_cfg=None, ipe_radii=None, device=None):
+                   kp_cfg=None, kp_t=None, ipe_radii=None, device=None):
     """Fused eval forward → (comp (B,3), weights (B,N), acc (B,1), depth (B,1)).
 
     ``enc_dir`` is the per-RAY encoded view direction (B, enc_dir_dim);
@@ -153,16 +187,16 @@ def fused_raymarch(model: NeRFMLP | PackedMLP, rays_o, rays_d_unit, z_vals, ray_
     MLP products. ``ert_eps`` > 0 enables early ray termination (each output
     moves by less than ``ert_eps`` per channel; skipped weights are 0).
 
+    ``scene_contraction`` warps the points before the encode (K2c).
+    ``kp_params`` (a ``KPlanes``, a dict of its tables, or a
+    :class:`PackedKPlanes` packed once per render) with ``kp_cfg`` replaces
+    the frequency encoder by the k-planes encode (K3); a 4-D model folds its
+    time planes at the frame's time ``kp_t``.
+
     Runs on ``cuda`` (the K2 kernel) unless ``device="cpu"`` (the plain
-    version); the model's parameters (or its :class:`PackedMLP`) must
-    already be on that device.
+    version); the model's parameters (or its :class:`PackedMLP`) and the
+    tables must already be on that device.
     """
-    if scene_contraction:
-        raise NotImplementedError(
-            "in-kernel scene contraction is kernel K2c (ROADMAP queue 2)")
-    if kp_params is not None or kp_cfg is not None:
-        raise NotImplementedError(
-            "the in-kernel k-planes encode is kernel K3 (ROADMAP queue 2)")
     if ipe_radii is not None:
         raise NotImplementedError(
             "the in-kernel IPE encode is kernel K4 (ROADMAP queue 2)")
@@ -170,13 +204,28 @@ def fused_raymarch(model: NeRFMLP | PackedMLP, rays_o, rays_d_unit, z_vals, ray_
     packed = as_packed(model)
     if packed.flat.device.type != dev.type:
         raise ValueError(f"model is on {packed.flat.device}, asked to run on {dev}")
+    kp = None
+    if kp_params is not None or kp_cfg is not None:
+        if kp_params is None or kp_cfg is None:
+            raise ValueError("the k-planes encode needs kp_params and kp_cfg")
+        if isinstance(kp_params, PackedKPlanes):
+            if kp_t is not None:
+                raise ValueError("packed kp_params carry their own time; pass "
+                                 "kp_t only with unpacked tables")
+            kp = kp_params
+        else:
+            kp = pack_kplanes(kp_params, kp_cfg, t=kp_t)
+        if kp.flat.device.type != dev.type:
+            raise ValueError(f"tables are on {kp.flat.device}, asked to run on {dev}")
     rays_o, rays_d_unit, z_vals, ray_norms, enc_dir = (
         t.to(dev, torch.float32)
         for t in (rays_o, rays_d_unit, z_vals, ray_norms, enc_dir))
-    bands = np.asarray(pos_bands, np.float32).reshape(-1)
+    bands = np.asarray([] if pos_bands is None else pos_bands,
+                       np.float32).reshape(-1)
     dt = _deltas(z_vals, ray_norms, infinite_last_bin)
     kw = dict(pos_include_input=pos_include_input,
-              sigma_activation=sigma_activation, white_bkgd=white_bkgd)
+              sigma_activation=sigma_activation, white_bkgd=white_bkgd,
+              contract=bool(scene_contraction), kp=kp)
     if dev.type == "cpu":
         raw, w = fused_raymarch_plain(packed, rays_o, rays_d_unit, z_vals, dt,
                                       ray_norms, enc_dir, bands, **kw)
@@ -197,4 +246,10 @@ def fixup_outputs(raw: torch.Tensor, w: torch.Tensor):
     return comp, w, acc, depth
 
 
-fused_raymarch.launches = 0
+def reset_launches() -> None:
+    """Set K2's launch counts, the total and each route's, to 0."""
+    fused_raymarch.launches = 0
+    fused_raymarch.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+reset_launches()

@@ -2,7 +2,8 @@
 
 Port of the reading half of ``nerf_sandbox_tpu/train/checkpoints.py``:
 checkpoint discovery (``find_latest_checkpoint``, ``peek_checkpoint_meta``)
-and a loader that turns the MLP parameters of a JAX ``.ckpt`` file — an
+and a loader that turns the model parameters (MLP and k-planes grid) of a
+JAX ``.ckpt`` file — an
 ``.npz`` of path-keyed arrays such as ``params_c||['trunk']||[0]||['w']``
 plus a JSON ``__meta__`` member (JAX checkpoints.py:34-42, 94-98) — into this
 package's state dicts, so a JAX-trained run renders here. Saving is ROADMAP
@@ -109,8 +110,9 @@ def _tree_from_flat(flat: dict, prefix: str):
 
 
 def load_params_from_jax_ckpt(path):
-    """A JAX ``.ckpt`` file → (state dict of the coarse MLP, of the fine MLP);
-    either is None if the file holds no such model."""
+    """A JAX ``.ckpt`` file → (state dict of the coarse model, of the fine
+    model), a k-planes ``pos_grid`` included; either is None if the file
+    holds no such model."""
     with np.load(Path(path), allow_pickle=False) as zf:
         flat = {k: zf[k] for k in zf.files
                 if k.startswith(("params_c" + _SEP, "params_f" + _SEP))}

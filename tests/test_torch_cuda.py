@@ -1,5 +1,6 @@
-"""The CUDA kernels K1 (fused MLP) and K2 (fused ray-march) against their
-plain PyTorch versions, on the card. Every test here carries the ``cuda``
+"""The CUDA kernels K1 (fused MLP), K2 (fused ray-march, with its K2c
+contraction and K3 k-planes branches) and K3's encode-only entry against
+their plain PyTorch versions, on the card. Every test here carries the ``cuda``
 marker and skips without a CUDA device (the ``cuda`` fixture decides at run
 time). This file imports neither JAX nor the JAX package, so it also runs on
 a machine that has only PyTorch:
@@ -9,17 +10,21 @@ a machine that has only PyTorch:
 Tolerances: K1 0.05 (the JAX fused-MLP test's bf16 bound); K2 comp, weights
 and acc 2e-2, depth 0.1 (``tests/test_fused_raymarch.py``) on rays off the
 infinite last bin's step (``chip_smoke.last_bin_kink``), and weights before
-the last sample on every ray; ERT against none 1e-3; padding 1e-5.
+the last sample on every ray; ERT against none 1e-3; padding 1e-5; K3
+encode-only within one bf16 ulp of its plain version, |Δ| <= 2^-7·max(1, |v|).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from nerf_sandbox_tpu_torch.core.encoding import positional_encoding, vanilla_encoders
+from nerf_sandbox_tpu_torch.core.encoding import (
+    positional_encoding, scene_contract, vanilla_encoders)
+from nerf_sandbox_tpu_torch.models.kplanes import KPlanesConfig
 from nerf_sandbox_tpu_torch.models.mlp import NeRFConfig, NeRFMLP
 from nerf_sandbox_tpu_torch.ops import fused_mlp as fm
 from nerf_sandbox_tpu_torch.ops import fused_raymarch as fr
+from nerf_sandbox_tpu_torch.ops import kplanes_encode as ke
 from nerf_sandbox_tpu_torch.render.renderer import (
     EvalHyper, make_tile_renderer, render_pose)
 from nerf_sandbox_tpu_torch.render.validation import compute_psnr
@@ -101,10 +106,13 @@ def _k2_pair(m, rays, dev, **kw):
     dt = fr._deltas(z, nr, kw.get("infinite_last_bin", True))
     plain_kw = {k: v for k, v in kw.items()
                 if k in ("sigma_activation", "white_bkgd")}
+    contract = kw.get("scene_contraction", False)
     want = fr.fixup_outputs(*fr.fused_raymarch_plain(
-        packed, o, d, z, dt, nr, ed, pos_b, **plain_kw))
+        packed, o, d, z, dt, nr, ed, pos_b, contract=contract, **plain_kw))
     # rays whose last sigma logit sits at the infinite last bin's step
     pts = o + d * (z[:, -1:] * nr[:, None])
+    if contract:
+        pts = scene_contract(pts)
     enc = positional_encoding(pts, pos_b)
     k_logit = fm.fused_nerf_apply(packed, enc, ed)[:, 3]
     p_logit = fm.fused_nerf_apply_plain(packed, enc, ed)[:, 3]
@@ -181,3 +189,153 @@ def test_render_pose_on_the_card(cuda):
     # early ray termination through the renderer: its coarse weights steer
     # the fine samples, so the frame is held by PSNR, not per pixel
     assert compute_psnr(frames["kernel_ert"]["rgb"], frames["kernel"]["rgb"]) >= 40.0
+
+
+KP_FULL = KPlanesConfig((64, 128), 8, 512, 16, aabb_scale=2.0, hybrid_freqs=6)
+KP_CFGS = {"full_hybrid6": KP_FULL,
+           "full_4d": KP_FULL._replace(hybrid_freqs=0, time_res=8),
+           "small_hybrid3": KPlanesConfig((8, 16), 8, 32, 16, aabb_scale=2.0,
+                                          hybrid_freqs=3)}
+
+
+def _kp_model(kcfg, seed, dev, n_layers=8, hidden=256, skip=4):
+    cfg = NeRFConfig(kcfg.out_dim, 27, n_layers=n_layers, hidden_dim=hidden,
+                     skip_pos=skip)
+    m = NeRFMLP(cfg, generator=torch.Generator().manual_seed(seed),
+                grid_cfg=kcfg, device=dev)
+    if kcfg.time_res:   # time planes off their neutral 1.0
+        g = torch.Generator().manual_seed(seed + 100)
+        with torch.no_grad():
+            for name, t in m.pos_grid.named_parameters():
+                if name == "line_t" or name.split("_")[-1] in ("xt", "yt", "zt"):
+                    t += 0.3 * torch.randn(t.shape, generator=g).to(dev)
+    return m
+
+
+def _ulp_ok(got, want):
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= 2.0 ** -7 * want.abs().clamp(min=1.0)).all())
+
+
+@pytest.mark.parametrize("kname", KP_CFGS)
+@pytest.mark.parametrize("q", [1, 63, 65, 5000])
+def test_k3_encode_matches_plain(cuda, kname, q):
+    kcfg = KP_CFGS[kname]
+    m = _kp_model(kcfg, 1, cuda, n_layers=3, hidden=128, skip=1)
+    kp = ke.pack_kplanes(m.pos_grid, kcfg, t=0.61 if kcfg.time_res else None)
+    rng = np.random.RandomState(q)
+    pts = torch.from_numpy(rng.uniform(-2.3, 2.3, (q, 3)).astype(np.float32)).to(cuda)
+    before = ke.fused_kplanes_encode.launches
+    got = ke.fused_kplanes_encode(kp, pts, 128)
+    torch.cuda.synchronize()
+    assert ke.fused_kplanes_encode.launches == before + 1
+    want = ke.kplanes_encode_plain(kp, pts, 128)
+    assert got.shape == (q, 128) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all() and _ulp_ok(got, want)
+    assert not got[:, kp.cfg.out_dim:].float().any()
+
+
+def _k2_kp_pair(m, kp, rays, contract, infinite_last_bin=True):
+    """K2 with the k-planes encode against its plain version, and the rays
+    off the last-bin kink (its band measured with K3 + K1 on the card)."""
+    o, d, nr, z = rays
+    _, dir_b = vanilla_encoders()
+    ed = positional_encoding(d, dir_b)
+    got = fr.fused_raymarch(m, o, d, z, nr, ed, None, kp_params=kp,
+                            kp_cfg=kp.cfg, scene_contraction=contract,
+                            infinite_last_bin=infinite_last_bin)
+    packed = fm.pack_nerf_params(m)
+    dt = fr._deltas(z, nr, infinite_last_bin)
+    want = fr.fixup_outputs(*fr.fused_raymarch_plain(
+        packed, o, d, z, dt, nr, ed, None, contract=contract, kp=kp))
+    pts = o + d * (z[:, -1:] * nr[:, None])
+    if contract:
+        pts = scene_contract(pts)
+    P = m.cfg.enc_pos_dim
+    k_logit = fm.fused_nerf_apply(packed, ke.fused_kplanes_encode(kp, pts, 128)[:, :P], ed)[:, 3]
+    p_logit = fm.fused_nerf_apply_plain(
+        packed, ke.kplanes_encode_plain(kp, pts, 128)[:, :P], ed)[:, 3]
+    band = 2.0 * float((k_logit - p_logit).abs().max())
+    off = p_logit.abs() >= band if infinite_last_bin else torch.ones_like(p_logit, dtype=bool)
+    return got, want, off
+
+
+K2_KP_CASES = {"static": (KP_FULL._replace(hybrid_freqs=0), False),
+               "hybrid_contracted": (KP_FULL, True),
+               "4d_fold": (KP_CFGS["full_4d"], False)}
+
+
+@pytest.mark.parametrize("case", K2_KP_CASES)
+def test_k2_kplanes_matches_plain(cuda, case):
+    kcfg, contract = K2_KP_CASES[case]
+    m = _kp_model(kcfg, 3, cuda)
+    kp = ke.pack_kplanes(m.pos_grid, kcfg, t=0.37 if kcfg.time_res else None)
+    fr.reset_launches()
+    got, want, off = _k2_kp_pair(m, kp, _rays(512, 64, 5, cuda), contract,
+                                 infinite_last_bin=not kcfg.time_res)
+    torch.cuda.synchronize()
+    routes = fr.fused_raymarch.route_launches
+    assert fr.fused_raymarch.launches == 1 and routes["kplanes"] == 1
+    assert routes["freq"] == 0 and routes["contract"] == int(contract)
+    assert routes["tfold"] == int(kcfg.time_res > 0)
+    assert int(off.sum()) >= 0.95 * off.numel()
+    for g, w, tol in zip(got, want, (2e-2, 2e-2, 2e-2, 0.1)):
+        assert torch.isfinite(g).all()
+        assert float((g[off] - w[off]).abs().max()) <= tol
+    assert float((got[1][:, :-1] - want[1][:, :-1]).abs().max()) <= 2e-2
+
+
+def test_k2_freq_contraction_matches_plain(cuda):
+    m = _model(VANILLA, 2, cuda)
+    fr.reset_launches()
+    got, want, off = _k2_pair(m, _rays(300, 64, 9, cuda), cuda,
+                              scene_contraction=True, infinite_last_bin=False)
+    routes = fr.fused_raymarch.route_launches
+    assert routes["freq"] == 1 and routes["contract"] == 1
+    for g, w, tol in zip(got, want, (2e-2, 2e-2, 2e-2, 0.1)):
+        assert float((g - w).abs().max()) <= tol
+
+
+def test_kplanes_on_cuda_never_takes_the_plain_version(cuda, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a CUDA call reached a plain version")
+
+    monkeypatch.setattr(fr, "fused_raymarch_plain", boom)
+    monkeypatch.setattr(fr, "kplanes_encode_plain", boom)
+    monkeypatch.setattr(ke, "kplanes_encode_plain", boom)
+    m = _kp_model(KP_FULL, 4, cuda)
+    o, d, nr, z = _rays(64, 32, 1, cuda)
+    _, dir_b = vanilla_encoders()
+    before = dict(fr.fused_raymarch.route_launches)
+    out = fr.fused_raymarch(m, o, d, z, nr, positional_encoding(d, dir_b), None,
+                            kp_params=m.pos_grid, kp_cfg=KP_FULL,
+                            scene_contraction=True)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x).all() for x in out)
+    after = fr.fused_raymarch.route_launches
+    assert after["kplanes"] == before["kplanes"] + 1
+    assert after["contract"] == before["contract"] + 1
+    kp = ke.pack_kplanes(m.pos_grid, KP_FULL)
+    n = ke.fused_kplanes_encode.launches
+    ke.fused_kplanes_encode(kp, o, 128)
+    assert ke.fused_kplanes_encode.launches == n + 1
+
+
+def test_contracted_kplanes_render_pose_on_the_card(cuda):
+    mc, mf = _kp_model(KP_FULL, 8, cuda), _kp_model(KP_FULL, 9, cuda)
+    K = np.array([[40.0, 0, 16], [0, 40.0, 16], [0, 0, 1]], np.float32)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = 1.0
+    frames = {}
+    for key, kw in (("kernel", dict(use_kernel=True)),
+                    ("plain", dict(use_kernel=False))):
+        hyper = EvalHyper(model=mc.cfg, samp_near=0.125, samp_far=22.5,
+                          lindisp=True, scene_contraction=True,
+                          pos_encoder="kplanes", enc_cfg=KP_FULL, **kw)
+        tile = make_tile_renderer(hyper, None, vanilla_encoders()[1], device=cuda)
+        frames[key] = render_pose(tile, mc, mf, c2w, 32, 32, K, eval_chunk=300,
+                                  device=cuda)
+    for f in frames.values():
+        assert np.isfinite(f["rgb"]).all()
+        assert f["rgb"].min() >= 0.0 and f["rgb"].max() <= 1.0
+    assert compute_psnr(frames["kernel"]["rgb"], frames["plain"]["rgb"]) >= 30.0

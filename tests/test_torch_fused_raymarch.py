@@ -1,11 +1,17 @@
 """K2's plain PyTorch version (``ops/fused_raymarch.py``) against the JAX
 fused ray-march (Pallas, interpret mode) and the JAX eval forward pass in
-bf16, at the vanilla 8x256 widths, on the CPU. The CUDA kernel is held
-against this plain version on the card (``tests/test_torch_cuda.py``,
+bf16, on the CPU: the frequency encoder at the vanilla 8x256 widths, with and
+without the contraction (K2c), and the k-planes encoder (K3; static, hybrid
+with contraction, and 4-D at a fixed time) at the JAX tests' widths (planes
+(8, 16) x 4, lines 32 x 8, aabb 2.0, a 4x128 MLP skip 2). The CUDA kernel is
+held against this plain version on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 
 Tolerances are those of ``tests/test_fused_raymarch.py``: comp, weights and
 acc 2e-2, depth 0.1 (bf16 accumulation order); padding independence 1e-5.
+The 4-D case has a finite last bin and compares depth as Σw·z at 0.12 (the
+weight tolerance times z_far), as the JAX test does: its seven-factor bf16
+feature product makes per-weight noise that a low-acc depth divides up.
 
 The infinite last bin makes a ray's output a step function of the sign of
 its last sigma logit (α jumps from 0 to 1 for any logit above ~1e-8), so two
@@ -24,13 +30,16 @@ import torch
 
 from nerf_sandbox_tpu.core.encoding import positional_encoding as jpe
 from nerf_sandbox_tpu.core.encoding import vanilla_encoders
+from nerf_sandbox_tpu.models import kplanes as jk
 from nerf_sandbox_tpu.models import mlp as jmlp
 from nerf_sandbox_tpu.models.forward import nerf_forward_pass as jforward
 from nerf_sandbox_tpu.ops.fused_raymarch import fused_raymarch as jfused
-from nerf_sandbox_tpu_torch.core.encoding import positional_encoding
+from nerf_sandbox_tpu_torch.core.encoding import positional_encoding, scene_contract
+from nerf_sandbox_tpu_torch.models import kplanes as tk
 from nerf_sandbox_tpu_torch.models import mlp as tmlp
 from nerf_sandbox_tpu_torch.ops import fused_mlp as tfm
 from nerf_sandbox_tpu_torch.ops import fused_raymarch as tfr
+from nerf_sandbox_tpu_torch.ops import kplanes_encode as tke
 
 JCFG = jmlp.NeRFConfig(enc_pos_dim=63, enc_dir_dim=27, n_layers=8,
                        hidden_dim=256, skip_pos=4)
@@ -67,12 +76,20 @@ def _port(m, o, d, norms, z, **kw):
     return [x.numpy() for x in out]
 
 
-def _last_logit_margin(m, o, d, norms, z):
+def _last_logit_margin(m, o, d, norms, z, contract=False, kp=None):
+    """Smallest |sigma logit| of the rays' last samples, through the plain
+    versions of the encode and K1."""
     pos_b, dir_b = vanilla_encoders()
     t = torch.from_numpy
     pts = t(o) + t(d) * (t(z[:, -1:]) * t(norms[:, None]))
-    out = tfm.fused_nerf_apply(m, positional_encoding(pts, pos_b),
-                               positional_encoding(t(d), dir_b), device="cpu")
+    if contract:
+        pts = scene_contract(pts)
+    if kp is None:
+        enc = positional_encoding(pts, pos_b)
+    else:
+        enc = tke.kplanes_encode_plain(kp, pts, 128)[:, :kp.cfg.out_dim]
+    out = tfm.fused_nerf_apply(m, enc, positional_encoding(t(d), dir_b),
+                               device="cpu")
     return float(out[:, 3].abs().min())
 
 
@@ -151,8 +168,103 @@ def test_deltas_and_fixup():
 def test_unported_branches_raise():
     _, m = _model(0)
     o, d, norms, z = _rays(b=4, n=8)
-    for kw, match in (({"scene_contraction": True}, "K2c"),
-                      ({"kp_cfg": object()}, "K3"),
-                      ({"ipe_radii": np.ones(4)}, "K4")):
-        with pytest.raises(NotImplementedError, match=match):
-            _port(m, o, d, norms, z, **kw)
+    with pytest.raises(NotImplementedError, match="K4"):
+        _port(m, o, d, norms, z, ipe_radii=np.ones(4))
+
+
+def test_freq_contraction_matches_jax():
+    """K2c on the frequency encoder: rays from inside the unit ball out to
+    radius ~7, so both branches of the warp run (JAX
+    tests/test_fused_raymarch.py:71-92)."""
+    params, m = _model(2)
+    rays = _rays(b=37, n=21, seed=9)
+    assert _last_logit_margin(m, *rays, contract=True) > KINK_MARGIN
+    got = _port(m, *rays, scene_contraction=True)
+    fused, _ = _jax_oracles(params, *rays, scene_contraction=True)
+    _assert_close(got, fused, "vs JAX fused_raymarch")
+    pos_b, dir_b = vanilla_encoders()
+    fwd = jforward(params, JCFG, *map(jnp.asarray, (rays[0], rays[1], rays[3])),
+                   pos_bands=jnp.asarray(pos_b), dir_bands=jnp.asarray(dir_b),
+                   white_bkgd=True, ray_norms=jnp.asarray(rays[2]),
+                   viewdirs_world_unit=jnp.asarray(rays[1]),
+                   infinite_last_bin=True, scene_contraction=True,
+                   compute_dtype=jnp.bfloat16)
+    _assert_close(got, fwd, "vs JAX nerf_forward_pass(bf16)")
+    # the warp changes the result (a silently ignored flag would not)
+    off = _port(m, *rays)
+    assert np.abs(got[0] - off[0]).max() > 1e-3
+
+
+KP_CASES = {
+    "static": dict(hybrid=0, time_res=0, contract=False, seed=11),
+    "hybrid_contracted": dict(hybrid=3, time_res=0, contract=True, seed=12),
+    "4d_fixed_time": dict(hybrid=0, time_res=6, contract=False, seed=13),
+}
+
+
+def _kp_model(hybrid, time_res, seed):
+    """A 4x128 MLP with a k-planes grid at the JAX tests' widths; tables
+    N(1, 0.1), 4-D time planes N(1, 0.3) so that time modulates the field."""
+    jkc = jk.KPlanesConfig(plane_res=(8, 16), plane_features=4, line_res=32,
+                           line_features=8, aabb_scale=2.0, hybrid_freqs=hybrid,
+                           time_res=time_res)
+    jcfg = jmlp.NeRFConfig(jkc.out_dim, 27, n_layers=4, hidden_dim=128,
+                           skip_pos=2)
+    params = jax.tree_util.tree_map(
+        np.asarray, jmlp.init_nerf_params(jax.random.PRNGKey(seed), jcfg))
+    rng = np.random.RandomState(seed)
+    grid = {}
+    for k, v in jk.init_kplanes_params(jax.random.PRNGKey(0), jkc).items():
+        std = 0.3 if k.split("_")[-1] in ("xt", "yt", "zt") else 0.1
+        grid[k] = (1.0 + std * rng.normal(size=v.shape)).astype(np.float32)
+    params["pos_grid"] = grid
+    m = tmlp.NeRFMLP(tmlp.NeRFConfig(*jcfg), grid_cfg=tk.KPlanesConfig(*jkc),
+                     device="cpu")
+    m.load_state_dict(tmlp.params_from_jax(params))
+    return params, jcfg, jkc, m
+
+
+@pytest.mark.parametrize("case", KP_CASES)
+def test_kplanes_matches_jax(case):
+    c = KP_CASES[case]
+    params, jcfg, jkc, m = _kp_model(c["hybrid"], c["time_res"], c["seed"])
+    o, d, norms, z = _rays(b=37, n=21, seed=c["seed"])
+    dyn = c["time_res"] > 0
+    t_frame = 0.37 if dyn else None
+    kw = dict(infinite_last_bin=not dyn, scene_contraction=c["contract"])
+    if not dyn:
+        kp = tke.pack_kplanes(m.pos_grid, m.pos_grid.cfg)
+        assert _last_logit_margin(m, o, d, norms, z, c["contract"], kp) > KINK_MARGIN
+    pos_b, dir_b = vanilla_encoders()
+    t = torch.from_numpy
+    got = tfr.fused_raymarch(m, t(o), t(d), t(z), t(norms),
+                             positional_encoding(t(d), dir_b), None,
+                             kp_params=m.pos_grid, kp_cfg=m.pos_grid.cfg,
+                             kp_t=t_frame, device="cpu", **kw)
+    got = [x.numpy() for x in got]
+    J = jnp.asarray
+    fused = jfused(params, jcfg, J(o), J(d), J(z), J(norms),
+                   jpe(J(d), J(dir_b)), None, kp_params=params["pos_grid"],
+                   kp_cfg=jkc, kp_t=None if t_frame is None else jnp.float32(t_frame),
+                   interpret=True, **kw)
+    fwd = jforward(params, jcfg, J(o), J(d), J(z), pos_bands=jnp.zeros((0,)),
+                   dir_bands=J(dir_b), white_bkgd=True, ray_norms=J(norms),
+                   viewdirs_world_unit=J(d), pos_encoder="kplanes", enc_cfg=jkc,
+                   t=None if t_frame is None else jnp.full((37,), t_frame),
+                   compute_dtype=jnp.bfloat16, **kw)
+    for want, what in ((fused, "vs JAX fused_raymarch"),
+                       (fwd, "vs JAX nerf_forward_pass(bf16)")):
+        want = [np.asarray(w) for w in want]
+        if dyn:   # depth as the raw composite sum of w·z
+            got[3], want[3] = got[3] * got[2], want[3] * want[2]
+            for g, w, name, tol in zip(got, want, TOLS, (2e-2, 2e-2, 2e-2, 0.12)):
+                np.testing.assert_allclose(g, w, atol=tol, err_msg=f"{what}: {name}")
+            got[3] = got[3] / got[2]
+        else:
+            _assert_close(got, want, what)
+    if dyn:   # the frame time moves the field
+        other = tfr.fused_raymarch(m, t(o), t(d), t(z), t(norms),
+                                   positional_encoding(t(d), dir_b), None,
+                                   kp_params=m.pos_grid, kp_cfg=m.pos_grid.cfg,
+                                   kp_t=0.9, device="cpu", **kw)
+        assert float((other[0] - torch.from_numpy(got[0])).abs().max()) > 1e-3

@@ -154,8 +154,10 @@ def test_params_from_jax_round_trip():
     for a, b in zip(jax.tree_util.tree_leaves(tree2),
                     jax.tree_util.tree_leaves(params)):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="P7"):
-        tmlp.params_from_jax({**params, "pos_grid": {}})
+    # a k-planes pos_grid converts (tests/test_torch_kplanes.py); appearance
+    # codes do not yet
+    with pytest.raises(NotImplementedError, match="P7 item 7"):
+        tmlp.params_from_jax({**params, "app_emb": np.zeros((4, 8))})
 
 
 def test_seeded_init_distributions():

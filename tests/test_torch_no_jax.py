@@ -65,11 +65,23 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from nerf_sandbox_tpu_torch.models.mlp import NeRFConfig, NeRFMLP
     from nerf_sandbox_tpu_torch.ops.fused_mlp import fused_nerf_apply
     from nerf_sandbox_tpu_torch.ops.fused_raymarch import fused_raymarch
+    from nerf_sandbox_tpu_torch.models.kplanes import KPlanes, KPlanesConfig
+    from nerf_sandbox_tpu_torch.ops.kplanes_encode import (
+        fused_kplanes_encode, pack_kplanes)
     from nerf_sandbox_tpu_torch.render.renderer import (
         EvalHyper, make_tile_renderer, render_pose, render_rays_chunked)
 
     cfg = NeRFConfig(63, 27, n_layers=3, hidden_dim=128, skip_pos=1)
     pos_b, dir_b = vanilla_encoders()
+    kcfg = KPlanesConfig(plane_res=(4,), plane_features=8, line_res=4,
+                         line_features=8, aabb_scale=2.0, hybrid_freqs=1)
+    kp_cfg = NeRFConfig(kcfg.out_dim, 27, n_layers=3, hidden_dim=128, skip_pos=1)
+    kp_model = NeRFMLP(kp_cfg, grid_cfg=kcfg, device="cpu")
+    kp_hyper = EvalHyper(model=kp_cfg, nc_eval=4, nf_eval=4, pos_encoder="kplanes",
+                         enc_cfg=kcfg, scene_contraction=True, lindisp=True,
+                         use_kernel=True)
+    kp_tile = make_tile_renderer(kp_hyper, None, dir_b, device="cpu")
+    packed_kp = pack_kplanes(kp_model.pos_grid, kcfg)
     model = NeRFMLP(cfg, device="cpu")
     tile = make_tile_renderer(EvalHyper(model=cfg, nc_eval=4, nf_eval=4),
                               pos_b, dir_b, device="cpu")
@@ -90,6 +102,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
             model, ro, rd, z, torch.ones(2), torch.zeros(2, 27), pos_b),
         "fused_nerf_apply": lambda: fused_nerf_apply(
             model, torch.zeros(2, 63), torch.zeros(2, 27)),
+        "KPlanes": lambda: KPlanes(kcfg),
+        "NeRFMLP(grid_cfg)": lambda: NeRFMLP(kp_cfg, grid_cfg=kcfg),
+        "fused_kplanes_encode": lambda: fused_kplanes_encode(
+            packed_kp, torch.zeros(2, 3), 64),
+        "make_tile_renderer(kplanes)": lambda: make_tile_renderer(
+            kp_hyper, None, dir_b),
+        "render_pose(kplanes)": lambda: render_pose(
+            kp_tile, kp_model, kp_model, np.eye(4), 2, 2, K),
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name, call in calls.items():
@@ -98,6 +118,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     # the same calls run on the CPU when asked to
     out = render_pose(tile, model, model, np.eye(4), 2, 2, K, device="cpu")
     assert out["rgb"].shape == (2, 2, 3)
+    out = render_pose(kp_tile, kp_model, kp_model, np.eye(4), 2, 2, K,
+                      device="cpu")
+    assert np.isfinite(out["rgb"]).all()
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -18,6 +18,11 @@ through the coarse pass alone, and the full hierarchical render on a smooth
 dense field (sigma head x0.5, bias +0.5), where the sampler is well
 conditioned. Every case also keeps the last sigma logit away from the
 infinite last bin's step (``KINK_MARGIN``).
+
+The contracted k-planes-hybrid configuration (the unbounded-360 one: planes
+(8, 16) x 4, lines 32 x 8, hybrid 3, aabb 2.0, ``scene_contraction``,
+``lindisp``, near 0.125 / far 22.5, an orbit at radius 1) is held the same
+way, and a 4-D grid through ``render_pose(time=...)`` with a finite last bin.
 """
 
 import jax
@@ -27,11 +32,15 @@ import pytest
 import torch
 
 from nerf_sandbox_tpu.core.encoding import vanilla_encoders
+from nerf_sandbox_tpu.models import kplanes as jk
 from nerf_sandbox_tpu.models import mlp as jmlp
 from nerf_sandbox_tpu.render import renderer as jr
-from nerf_sandbox_tpu_torch.core.encoding import positional_encoding
+from nerf_sandbox_tpu_torch.core.encoding import positional_encoding, scene_contract
 from nerf_sandbox_tpu_torch.core.rays import get_camera_rays_grid
+from nerf_sandbox_tpu_torch.models import kplanes as tk
 from nerf_sandbox_tpu_torch.models import mlp as tmlp
+from nerf_sandbox_tpu_torch.ops import fused_mlp as tfm
+from nerf_sandbox_tpu_torch.ops import kplanes_encode as tke
 from nerf_sandbox_tpu_torch.render import renderer as tr
 
 JCFG = jmlp.NeRFConfig(63, 27, n_layers=3, hidden_dim=128, skip_pos=1)
@@ -180,9 +189,7 @@ def test_perturbed_render_is_seeded():
 @pytest.mark.parametrize("kw,match", [
     ({"sampling_mode": "occupancy"}, "P7 item 3"),
     ({"sampling_mode": "proposal"}, "P7 item 4"),
-    ({"pos_encoder": "kplanes"}, "P7 item 2"),
     ({"pos_encoder": "hashgrid"}, "P7 item 8"),
-    ({"scene_contraction": True}, "K2c"),
     ({"ipe": True}, "K4"),
     ({"dir_encoder": "sh"}, "P7 item 6"),
 ])
@@ -201,3 +208,142 @@ def test_tile_device_mismatch_raises():
     (_, mc), (_, mf) = _models()
     with pytest.raises(ValueError, match="tile renderer runs on"):
         tr.render_pose(tile, mc, mf, _pose(), 2, 2, KMAT, device="cpu")
+
+
+def _kp_models(time_res=0, hybrid=3, smooth=False):
+    """JAX params and the port's models of the k-planes configuration: a
+    3x128 MLP (skip 1) with a grid of N(1, 0.1) tables (4-D time planes
+    N(1, 0.3)), seeds 0 and 1."""
+    jkc = jk.KPlanesConfig(plane_res=(8, 16), plane_features=4, line_res=32,
+                           line_features=8, aabb_scale=2.0, hybrid_freqs=hybrid,
+                           time_res=time_res)
+    jcfg = jmlp.NeRFConfig(jkc.out_dim, 27, n_layers=3, hidden_dim=128,
+                           skip_pos=1)
+    out = []
+    for seed in (0, 1):
+        p = jax.tree_util.tree_map(
+            np.asarray, jmlp.init_nerf_params(jax.random.PRNGKey(seed), jcfg))
+        if smooth:
+            p["sigma_out"]["w"] = p["sigma_out"]["w"] * 0.5
+            p["sigma_out"]["b"] = p["sigma_out"]["b"] + 0.5
+        rng = np.random.RandomState(10 + seed)
+        p["pos_grid"] = {
+            k: (1.0 + (0.3 if k.split("_")[-1] in ("xt", "yt", "zt") else 0.1)
+                * rng.normal(size=v.shape)).astype(np.float32)
+            for k, v in jk.init_kplanes_params(jax.random.PRNGKey(0), jkc).items()}
+        m = tmlp.NeRFMLP(tmlp.NeRFConfig(*jcfg), grid_cfg=tk.KPlanesConfig(*jkc),
+                         device="cpu")
+        m.load_state_dict(tmlp.params_from_jax(p))
+        out.append((p, m))
+    return jkc, jcfg, out
+
+
+def _orbit_360(th):
+    """The mip-NeRF 360 "norm" frame: an orbit at radius 1 (RESULTS.md)."""
+    c2w = _pose(th)
+    c2w[:3, 3] /= 4.0
+    return c2w
+
+
+def _kp_last_logit_margin(models, c2w, far, time=None):
+    """Smallest |sigma logit| at z = far over all pixels, both models and
+    every encode the compared paths use: fp32 and bf16 ``kplanes_encode``
+    with the MLP in that type, and K3's plain version with K1's."""
+    _, dir_b = vanilla_encoders()
+    rays = get_camera_rays_grid(torch.from_numpy(KMAT), torch.from_numpy(c2w),
+                                image_h=H, image_w=W, pixel_center=True)
+    pts = scene_contract(rays.o_march + rays.d_march_unit * (far * rays.d_march_norm))
+    enc_d = positional_encoding(rays.d_world_unit, dir_b)
+    t01 = None if time is None else torch.full((H * W,), float(time))
+    out = []
+    with torch.no_grad():
+        for _, m in models:
+            cfg = m.pos_grid.cfg
+            for dt in (None, torch.bfloat16):
+                enc = m.pos_grid(pts, compute_dtype=dt, t01=t01)
+                out.append(float(m(enc, enc_d, compute_dtype=dt)[:, 3].abs().min()))
+            kp = tke.pack_kplanes(m.pos_grid, cfg, t=time)
+            enc = tke.kplanes_encode_plain(kp, pts, 128)[:, :cfg.out_dim]
+            out.append(float(tfm.fused_nerf_apply(m, enc, enc_d, device="cpu")
+                             [:, 3].abs().min()))
+    return min(out)
+
+
+KP_360 = dict(samp_near=0.125, samp_far=22.5, lindisp=True,
+              scene_contraction=True, pos_encoder="kplanes")
+KP_PATHS = {"fp32_plain": (dict(compute_dtype="float32"),
+                           dict(compute_dtype="float32"), (1e-4, 1e-4, 1e-3)),
+            "bf16_kernel_twin": (dict(use_pallas=True, pallas_interpret=True),
+                                 dict(use_kernel=True), (2e-2, 2e-2, 0.1))}
+KP_FIELDS = {"raw_init_coarse_only": dict(smooth=False, nf_eval=0, th=0.0),
+             "smooth_field_hierarchical": dict(smooth=True, nf_eval=16, th=1.1)}
+
+
+def _kp_render_both(models, jkc, jcfg, c2w, nf_eval, jax_kw, port_kw, time=None,
+                    **hyper):
+    _, dir_b = vanilla_encoders()
+    (pc, mc), (pf, mf) = models
+    if not nf_eval:
+        pf = mf = None
+    jtile = jr.make_tile_renderer(
+        jr.EvalHyper(model=jcfg, nc_eval=8, nf_eval=nf_eval, enc_cfg=jkc,
+                     **hyper, **jax_kw), jnp.zeros((0,)), jnp.asarray(dir_b))
+    want = jr.render_pose(jtile, pc, pf, c2w, H, W, KMAT, eval_chunk=64,
+                          time=time)
+    ttile = tr.make_tile_renderer(
+        tr.EvalHyper(model=tmlp.NeRFConfig(*jcfg), nc_eval=8, nf_eval=nf_eval,
+                     enc_cfg=tk.KPlanesConfig(*jkc), **hyper, **port_kw),
+        np.zeros(0, np.float32), dir_b, device="cpu")
+    got = tr.render_pose(ttile, mc, mf, c2w, H, W, KMAT, eval_chunk=64,
+                         time=time, device="cpu")
+    return got, want
+
+
+@pytest.mark.parametrize("field", KP_FIELDS)
+@pytest.mark.parametrize("path", KP_PATHS)
+def test_contracted_kplanes_hybrid_matches_jax(path, field):
+    """The unbounded-360 configuration: k-planes + hybrid channels + scene
+    contraction + disparity-linear samples, plain and kernel-twin paths."""
+    f = KP_FIELDS[field]
+    jax_kw, port_kw, tols = KP_PATHS[path]
+    jkc, jcfg, models = _kp_models(smooth=f["smooth"])
+    c2w = _orbit_360(f["th"])
+    assert _kp_last_logit_margin(models, c2w, KP_360["samp_far"]) > KINK_MARGIN
+    got, want = _kp_render_both(models, jkc, jcfg, c2w, f["nf_eval"], jax_kw,
+                                port_kw, **KP_360)
+    for key, tol in zip(("rgb", "acc", "depth"), tols):
+        np.testing.assert_allclose(got[key], want[key], atol=tol, err_msg=key)
+    assert got["rgb"].std() > 1e-2
+
+
+@pytest.mark.parametrize("path", KP_PATHS)
+def test_4d_render_pose_at_a_time_matches_jax(path):
+    """``render_pose(time=...)`` on a 4-D grid (time_res 6, no hybrid, no
+    contraction) with a finite last bin; a second time gives another frame."""
+    jax_kw, port_kw, tols = KP_PATHS[path]
+    jkc, jcfg, models = _kp_models(time_res=6, hybrid=0, smooth=True)
+    hyper = dict(pos_encoder="kplanes", infinite_last_bin=False)
+    got, want = _kp_render_both(models, jkc, jcfg, _pose(0.7), 16, jax_kw,
+                                port_kw, time=0.37, **hyper)
+    for key, tol in zip(("rgb", "acc", "depth"), tols):
+        np.testing.assert_allclose(got[key], want[key], atol=tol, err_msg=key)
+    later, _ = _kp_render_both(models, jkc, jcfg, _pose(0.7), 16, jax_kw,
+                               port_kw, time=0.9, **hyper)
+    assert np.abs(later["rgb"] - got["rgb"]).max() > 1e-3
+    ttile = tr.make_tile_renderer(
+        tr.EvalHyper(model=tmlp.NeRFConfig(*jcfg), enc_cfg=tk.KPlanesConfig(*jkc),
+                     **hyper, **port_kw), np.zeros(0, np.float32),
+        vanilla_encoders()[1], device="cpu")
+    with pytest.raises(ValueError, match="time"):
+        tr.render_pose(ttile, models[0][1], models[1][1], _pose(), 2, 2, KMAT,
+                       device="cpu")
+
+
+def test_kplanes_hyper_is_checked():
+    jkc, jcfg, _ = _kp_models()
+    cfg = tmlp.NeRFConfig(*jcfg)
+    _, dir_b = vanilla_encoders()
+    for kw in (dict(), dict(enc_cfg=tk.KPlanesConfig(*jkc)._replace(hybrid_freqs=1))):
+        with pytest.raises(ValueError, match="enc_cfg|out_dim"):
+            tr.make_tile_renderer(tr.EvalHyper(model=cfg, pos_encoder="kplanes",
+                                               **kw), None, dir_b, device="cpu")
