@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py          # from the repository root; one CUDA card
 
-Two configurations: Blender vanilla (frequency encoder, 8x256 MLP) and the
+Three configurations: Blender vanilla (frequency encoder, 8x256 MLP), the
 contracted K-Planes-hybrid unbounded-360 one (planes (64, 128) x 8, lines
 512 x 16, hybrid L=6, aabb 2.0, mip-NeRF 360 contraction, disparity-linear
-samples from 0.125 to 22.5, an 8x256 MLP on the 71 encoder columns).
+samples from 0.125 to 22.5, an 8x256 MLP on the 71 encoder columns), and
+mip-NeRF's integrated positional encoding on Blender (the vanilla recipe with
+``ipe=True``: each sample a conical-frustum Gaussian over its interval, per-ray
+pixel-cone radii).
 
 Phases (any failure exits non-zero):
 
@@ -28,6 +31,11 @@ Phases (any failure exits non-zero):
    and K3t (a 4-D grid, time_res 8, time tables N(1, 0.1), folded at
    t = 0.37, finite last bin; Σw·z held at 2e-2 x far) against their plain
    versions; each timed, with its bound;
+4c. K4 (the IPE encode inside K2) on phase 4's fine tile with the radii
+   ``pixel_cone_radii(FOCAL, |d|)``, against its plain version at phase 4's
+   tolerances, ERT (eps 1e-4) against none within 1e-3, and K4 with
+   contraction on phase 4b's tile (frequency model); each timed beside the
+   frequency tile, with its bound;
 5. the slice: ``render_pose`` of two 800x800 Blender-style poses through K2
    (``EvalHyper`` vanilla, ``use_kernel=True``) and one
    ``nerf_forward_pass(use_kernel=True)`` over a fine tile through K1, with
@@ -41,16 +49,28 @@ Phases (any failure exits non-zero):
    after (per route: phase 5 must run only the frequency instantiation,
    5b only the k-planes one); frame 1 against the plain path as in 5; then
    one frame of phase 4b's 4-D model at t = 0.37, every launch folding;
+5c. the IPE slice: two 800x800 Blender poses through ``render_pose`` with
+   ``EvalHyper(ipe=True, use_kernel=True)`` (80 K2 launches a frame, every
+   one on route ``ipe``) and one ``nerf_forward_pass(ipe=True,
+   use_kernel=True)`` through K1, counted as in 5; frame 1 against the plain
+   path as in 5;
+7. K5, the precision probe: ``a @ b`` on the TPU probe's three shapes in
+   the modes bf16, tf32, bf16x3 and fp32, each launch counted, its error
+   against the fp64 oracle printed and each output held against its plain
+   version within K 2^-23 sum|a||b|; timed beside ``torch.matmul``;
 6. a ``{"kernels": [...]}`` JSON line with each kernel's launches on its
    path, max |diff| against its plain version, its time, the plain
-   version's time and the card's bound for the same work; then the last
-   line ``{"ok": true, "device": {...}}``.
+   version's time, the card's bound for the same work and, where one
+   PyTorch call computes the same function, that call's time; then the
+   last line ``{"ok": true, "device": {...}}``.
 
 The infinite last bin makes a ray's composite a step function of the sign of
 its last sigma logit (``last_bin_kink``). Rays whose logit is closer to zero
 than twice the measured kernel-vs-plain logit difference are counted (at
 most 5% allowed) and held on every sample but the last (phase 4) or by the
-frame PSNR (phase 5); every other ray is held at the tolerances above.
+frame PSNR (phase 5); every other ray is held at the tolerances above. With
+IPE the last sample's encoding depends on its interval, so the band is
+measured on the last sample's frustum Gaussian of each pass.
 
 There is no CPU path: without a CUDA device, or without the package beside
 this script, it prints nothing on stdout and exits 2.
@@ -96,6 +116,22 @@ def cuda_ms(torch, fn, reps=10):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def graph_ms(torch, fn, n=100):
+    """Device time of one call of ``fn``, from a CUDA graph of ``n`` calls
+    replayed as in ``cuda_ms``: for launches shorter than the host's own
+    overhead per call, which events around single calls would measure."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(torch, graph.replay) / n
 
 
 def mlp_macs_per_row(cfg):
@@ -162,6 +198,40 @@ def last_bin_kink(pairs):
         mask = m if mask is None else mask | m
         bands.append(round(band, 6))
     return mask, bands
+
+
+NAMES = ("comp", "w", "acc", "depth")
+
+
+def hold_off_kink(tag, got, want, kink):
+    """Hold K2's outputs against its plain version: rays off the last-bin
+    kink on every output (comp, w, acc 2e-2, depth 0.1), every ray on its
+    weights before the last sample (2e-2), at most 5% of rays at the kink.
+    → the largest of those differences."""
+    import numpy as np
+    B, N = got[1].shape
+    ok = ~kink
+    errs = {n: max_diff(g[ok], w[ok]) for n, g, w in zip(NAMES, got, want)}
+    errs["w[:-1]"] = max_diff(got[1][:, :-1], want[1][:, :-1])
+    n_kink = int(kink.sum())
+    print(f"[{tag}] tile {B}x{N}: max|diff| vs plain {errs}; {n_kink} rays "
+          f"at the last-bin kink, whole-tile comp max|diff| "
+          f"{max_diff(got[0], want[0]):.3g}", flush=True)
+    check(n_kink <= 0.05 * B, f"{tag}: {n_kink} of {B} rays at the kink")
+    for n, tol in zip(NAMES + ("w[:-1]",), (2e-2, 2e-2, 2e-2, 0.1, 2e-2)):
+        check(np.isfinite(errs[n]) and errs[n] <= tol,
+              f"{tag} {n} max |diff| {errs[n]} > {tol}")
+    return max(errs.values())
+
+
+def ipe_last_enc(ro, rd, rn, z, radii, pos_bands, contract=False):
+    """Each ray's last sample encoded as its frustum Gaussian (K4's plain
+    formulas), for ``last_bin_kink``."""
+    from nerf_sandbox_tpu_torch.core.encoding import integrated_positional_encoding
+    from nerf_sandbox_tpu_torch.ops import fused_raymarch as fr
+    mean, var = fr.ipe_gaussians(ro, rd, z * rn.reshape(-1, 1), radii.reshape(-1),
+                                 contract)
+    return integrated_positional_encoding(mean[:, -1], var[:, -1], pos_bands)
 
 
 def blender_pose(i):
@@ -246,24 +316,11 @@ def phase_360_tile(torch, dev, card, packed_freq, kernels):
                                                    deterministic=True)).contiguous()
     B, N = z.shape
     dt = fr._deltas(z, rn, True)
-    names = ("comp", "w", "acc", "depth")
+    names = NAMES
     pts = scene_contract((ro[:, None, :] + rd[:, None, :] * (z * rn)[..., None])
                          .reshape(-1, 3))
     last = pts.reshape(B, N, 3)[:, -1]
-
-    def hold(tag, got, want, kink):
-        ok = ~kink
-        errs = {n: max_diff(g[ok], w[ok]) for n, g, w in zip(names, got, want)}
-        errs["w[:-1]"] = max_diff(got[1][:, :-1], want[1][:, :-1])
-        n_kink = int(kink.sum())
-        print(f"[{tag}] tile {B}x{N}: max|diff| vs plain {errs}; {n_kink} rays "
-              f"at the last-bin kink, whole-tile comp max|diff| "
-              f"{max_diff(got[0], want[0]):.3g}", flush=True)
-        check(n_kink <= 0.05 * B, f"{tag}: {n_kink} of {B} rays at the kink")
-        for n, tol in zip(names + ("w[:-1]",), (2e-2, 2e-2, 2e-2, 0.1, 2e-2)):
-            check(np.isfinite(errs[n]) and errs[n] <= tol,
-                  f"{tag} {n} max |diff| {errs[n]} > {tol}")
-        return max(errs.values())
+    hold = hold_off_kink
 
     # K2 with K2c + K3, against its plain version
     got = fr.fused_raymarch(mlp_f, ro, rd, z, rn, enc_dir, None,
@@ -393,8 +450,8 @@ def phase_360_tile(torch, dev, card, packed_freq, kernels):
         ms=enc_ms, plain_ms=enc_plain_ms, bound_ms=b_enc[0], bound_by=b_enc[1],
         library_ms=None)
     return dict(cfg=cfg, kcfg=kcfg, model_c=model_c, model_f=model_f, Kmat=Kmat,
-                ro=ro, rd=rd, rn=rn, vd=vd, z=z, got=got, kink=kink,
-                kp_ms=kp_ms, kp_coarse_ms=kp_coarse_ms, kcfg4=kcfg4,
+                ro=ro, rd=rd, rn=rn, vd=vd, z=z, enc_dir=enc_dir, got=got,
+                kink=kink, kp_ms=kp_ms, kp_coarse_ms=kp_coarse_ms, kcfg4=kcfg4,
                 model_t=model_t)
 
 
@@ -456,7 +513,7 @@ def phase_360_slice(torch, dev, card, ctx):
           flush=True)
     check(routes["kplanes"] == expect and routes["contract"] == expect,
           f"K2 k-planes/contraction launched {routes}, expected {expect}")
-    check(routes["freq"] == 0 and routes["tfold"] == 0,
+    check(routes["freq"] == routes["tfold"] == routes["ipe"] == 0,
           f"the 360 path ran another K2 instantiation: {routes}")
     check(launches["kplanes_encode"] >= 1 and launches["fused_mlp"] >= 1,
           "K3's encode-only entry or K1 was not launched on the 360 path")
@@ -533,6 +590,295 @@ def phase_360_slice(torch, dev, card, ctx):
           f"4-D frame: K2 routes {routes4}, expected {2 * n_tiles} folds")
     check(np.isfinite(f4["rgb"]).all() and f4["rgb"].min() >= 0.0
           and f4["rgb"].max() <= 1.0, "4-D frame rgb not finite or outside [0, 1]")
+    return launches
+
+
+def ipe_fp32_flops():
+    """fp32 operations K4 adds per sample: the interval and moments (~40),
+    the lift or the contraction pushforward (~110), and per sin/cos column
+    of the L = 10 encode the attenuation's multiplies and exp (60 x 3)."""
+    return 150 + 60 * 3
+
+
+def phase_ipe_tile(torch, dev, card, packed_f, packed_d, t4, ctx360, kernels):
+    """4c: K4 on phase 4's Blender fine tile and, with contraction, on phase
+    4b's 360 tile, against its plain version; ERT; timed beside the
+    frequency tile. → context for phase 5c."""
+    import numpy as np
+
+    from nerf_sandbox_tpu_torch.core.encoding import (
+        pixel_cone_radii, vanilla_encoders)
+    from nerf_sandbox_tpu_torch.ops import fused_mlp as fm
+    from nerf_sandbox_tpu_torch.ops import fused_raymarch as fr
+
+    def k1_and_plain(enc, enc_d):
+        return (fm.fused_nerf_apply(packed_f, enc, enc_d)[:, 3],
+                fm.fused_nerf_apply_plain(packed_f, enc, enc_d)[:, 3])
+
+    pos_bands, _ = vanilla_encoders()
+    ro, rd, rn, z, zc, enc_dir = (t4[k] for k in ("ro", "rd", "rn", "z", "zc",
+                                                   "enc_dir"))
+    B, N = z.shape
+    dt = fr._deltas(z, rn, True)
+    fx = torch.tensor(FOCAL, dtype=torch.float32, device=dev)
+    radii = pixel_cone_radii(fx, rn.reshape(-1))
+    print(f"[K4] pixel-cone radii {float(radii.min()):.3g}..{float(radii.max()):.3g}",
+          flush=True)
+
+    got = fr.fused_raymarch(packed_f, ro, rd, z, rn, enc_dir, pos_bands,
+                            ipe_radii=radii)
+    want = fr.fixup_outputs(*fr.fused_raymarch_plain(
+        packed_f, ro, rd, z, dt, rn, enc_dir, pos_bands, radii=radii))
+    torch.cuda.synchronize()
+    kink, bands = last_bin_kink([k1_and_plain(
+        ipe_last_enc(ro, rd, rn, z, radii, pos_bands), enc_dir)])
+    print(f"[K4] kink band |logit| < {bands[0]:.3g}", flush=True)
+    k4_err = hold_off_kink("K4", got, want, kink)
+
+    # ERT on the IPE tile, and on the dense model where whole blocks stop
+    for tag, pk in (("golden", packed_f), ("dense", packed_d)):
+        full = fr.fused_raymarch(pk, ro, rd, z, rn, enc_dir, pos_bands,
+                                 ipe_radii=radii)
+        ert = fr.fused_raymarch(pk, ro, rd, z, rn, enc_dir, pos_bands,
+                                ipe_radii=radii, ert_eps=1e-4)
+        ert_errs = {n: max_diff(g, w) for n, g, w in zip(NAMES, ert, full)}
+        print(f"[K4] ERT(1e-4) vs none, {tag} model: max|diff| {ert_errs}; "
+              f"{float((ert[1] == 0).float().mean()):.3f} of the weights skipped",
+              flush=True)
+        for n in NAMES:
+            check(np.isfinite(ert_errs[n]) and ert_errs[n] <= 1e-3,
+                  f"K4 ERT ({tag}) {n} max |diff| {ert_errs[n]} > 1e-3")
+
+    # K4 with contraction, on the 360 tile (lindisp 0.125..22.5, radius-1 orbit)
+    c_ro, c_rd, c_rn, c_z, c_ed = (ctx360[k] for k in ("ro", "rd", "rn", "z",
+                                                       "enc_dir"))
+    c_radii = pixel_cone_radii(fx, c_rn.reshape(-1))
+    got_c = fr.fused_raymarch(packed_f, c_ro, c_rd, c_z, c_rn, c_ed, pos_bands,
+                              ipe_radii=c_radii, scene_contraction=True)
+    c_dt = fr._deltas(c_z, c_rn, True)
+    want_c = fr.fixup_outputs(*fr.fused_raymarch_plain(
+        packed_f, c_ro, c_rd, c_z, c_dt, c_rn, c_ed, pos_bands, contract=True,
+        radii=c_radii))
+    torch.cuda.synchronize()
+    kink_c, bands_c = last_bin_kink([k1_and_plain(
+        ipe_last_enc(c_ro, c_rd, c_rn, c_z, c_radii, pos_bands, contract=True),
+        c_ed)])
+    print(f"[K4c] kink band |logit| < {bands_c[0]:.3g}", flush=True)
+    k4c_err = hold_off_kink("K4c", got_c, want_c, kink_c)
+
+    # times, the frequency tile between them on the same inputs
+    def k2(**a):
+        return lambda: fr.fused_raymarch(packed_f, ro, rd, z, rn, enc_dir,
+                                         pos_bands, **a)
+
+    freq_ms = cuda_ms(torch, k2())
+    ipe_ms = cuda_ms(torch, k2(ipe_radii=radii))
+    ipe_coarse_ms = cuda_ms(torch, lambda: fr.fused_raymarch(
+        packed_f, ro, rd, zc, rn, enc_dir, pos_bands, ipe_radii=radii))
+    ipe_ert_ms = cuda_ms(torch, k2(ipe_radii=radii, ert_eps=1e-4))
+    ipe_plain_ms = cuda_ms(torch, lambda: fr.fused_raymarch_plain(
+        packed_f, ro, rd, z, dt, rn, enc_dir, pos_bands, radii=radii))
+    ipe_c_ms = cuda_ms(torch, lambda: fr.fused_raymarch(
+        packed_f, c_ro, c_rd, c_z, c_rn, c_ed, pos_bands, ipe_radii=c_radii,
+        scene_contraction=True))
+    ipe_c_plain_ms = cuda_ms(torch, lambda: fr.fused_raymarch_plain(
+        packed_f, c_ro, c_rd, c_z, c_dt, c_rn, c_ed, pos_bands, contract=True,
+        radii=c_radii))
+    freq_ms2 = cuda_ms(torch, k2())
+    Q = B * N
+    b_ipe = bound(2.0 * mlp_macs_per_row(packed_f.cfg) * Q,
+                  B * (8 + 27) * 4 + Q * 4 * 3 + B * 5 * 4
+                  + packed_f.flat.numel() * 2, ipe_fp32_flops() * Q)
+    print(f"[K4] fine tile {B}x{N}: IPE kernel {ipe_ms:.3f} ms, frequency "
+          f"kernel on the same tile {freq_ms:.3f} / {freq_ms2:.3f} ms (before / "
+          f"after), IPE with ERT(1e-4) {ipe_ert_ms:.3f} ms, plain "
+          f"{ipe_plain_ms:.3f} ms, bound {b_ipe[0]:.3f} ms ({b_ipe[1]}); coarse "
+          f"tile {B}x{zc.shape[1]} IPE kernel {ipe_coarse_ms:.3f} ms | {card}",
+          flush=True)
+    print(f"[K4c] 360 fine tile with contraction: kernel {ipe_c_ms:.3f} ms, "
+          f"plain {ipe_c_plain_ms:.3f} ms", flush=True)
+    kernels["fused_raymarch_ipe"] = dict(
+        name="fused_raymarch_ipe", route="cuda",
+        source="nerf_sandbox_tpu_torch/csrc/fused_raymarch.cu",
+        replaces="nerf_sandbox_tpu/ops/fused_raymarch.py:432",
+        max_abs_err=max(k4_err, k4c_err), ms=ipe_ms, plain_ms=ipe_plain_ms,
+        bound_ms=b_ipe[0], bound_by=b_ipe[1], library_ms=None)
+    return dict(radii=radii, got=got, kink=kink, ipe_ms=ipe_ms,
+                ipe_coarse_ms=ipe_coarse_ms)
+
+
+def phase_ipe_slice(torch, dev, card, model_c, model_f, t4, ctx):
+    """5c: two 800x800 IPE frames through K4 and one IPE ``nerf_forward_pass``
+    through K1, counted; frame 1 against the plain path. → the kernels'
+    launches on this path."""
+    import numpy as np
+
+    from nerf_sandbox_tpu_torch.core.encoding import (
+        pixel_cone_radii, positional_encoding, vanilla_encoders)
+    from nerf_sandbox_tpu_torch.core.rays import get_camera_rays_grid
+    from nerf_sandbox_tpu_torch.core.sampling import (
+        merge_z_samples, resample_midpoints, stratified_samples)
+    from nerf_sandbox_tpu_torch.models.forward import nerf_forward_pass
+    from nerf_sandbox_tpu_torch.ops import fused_mlp as fm
+    from nerf_sandbox_tpu_torch.ops import fused_raymarch as fr
+    from nerf_sandbox_tpu_torch.render.renderer import (
+        EvalHyper, make_tile_renderer, render_pose)
+    from nerf_sandbox_tpu_torch.render.validation import compute_psnr
+
+    pos_bands, dir_bands = vanilla_encoders()
+    Kmat = t4["Kmat"]
+    hyper = EvalHyper(model=model_f.cfg, ipe=True, use_kernel=True)
+    tile_k = make_tile_renderer(hyper, pos_bands, dir_bands, device=dev)
+    tile_p = make_tile_renderer(hyper._replace(use_kernel=False), pos_bands,
+                                dir_bands, device=dev)
+    torch.cuda.synchronize()
+    fr.reset_launches()
+    fm.fused_nerf_apply.launches = 0
+    frames, secs = [], []
+    for i in range(N_POSES):
+        t0 = time.perf_counter()
+        frames.append(render_pose(tile_k, model_c, model_f, blender_pose(i),
+                                  IMG, IMG, Kmat, eval_chunk=EVAL_CHUNK, device=dev))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    with torch.no_grad():
+        fwd = nerf_forward_pass(model_f, t4["ro"], t4["rd"], t4["z"],
+                                pos_bands=pos_bands, dir_bands=dir_bands,
+                                white_bkgd=True, ray_norms=t4["rn"],
+                                viewdirs_world_unit=t4["vd"], infinite_last_bin=True,
+                                compute_dtype=torch.bfloat16, use_kernel=True,
+                                ipe=True, radii=ctx["radii"], device=dev)
+    torch.cuda.synchronize()
+    routes = dict(fr.fused_raymarch.route_launches)
+    launches = {"fused_raymarch_ipe": routes["ipe"],
+                "fused_mlp": fm.fused_nerf_apply.launches}
+    n_tiles = -(-IMG * IMG // EVAL_CHUNK)
+    expect = 2 * n_tiles * N_POSES
+    print(f"[slice IPE] launches on this path: {launches}, K2 routes {routes} "
+          f"(IPE expected {expect}, {2 * n_tiles} a frame)", flush=True)
+    check(fr.fused_raymarch.launches == routes["ipe"] == expect,
+          f"K2 launched {fr.fused_raymarch.launches} times ({routes}), expected "
+          f"{expect} IPE launches")
+    check(routes["freq"] == routes["kplanes"] == routes["contract"] == 0,
+          f"the IPE path ran another K2 instantiation: {routes}")
+    check(launches["fused_mlp"] >= 1, "K1 was not launched on the IPE path")
+    for k, f in enumerate(frames):
+        for key in ("rgb", "acc", "depth"):
+            check(np.isfinite(f[key]).all(), f"IPE frame {k} {key} not finite")
+        check(f["rgb"].shape == (IMG, IMG, 3), f"IPE frame {k} rgb shape")
+        check(f["rgb"].min() >= 0.0 and f["rgb"].max() <= 1.0,
+              f"IPE frame {k} rgb outside [0, 1]")
+    ok = ~ctx["kink"]
+    fwd_err = max_diff(fwd[0][ok], ctx["got"][0][ok])
+    print(f"[slice IPE] nerf_forward_pass(ipe, use_kernel=True) vs K4 on the "
+          f"tile, off the kink: comp max|diff| {fwd_err:.3g}", flush=True)
+    check(fwd_err <= 2e-2, f"IPE forward vs K4 comp max |diff| {fwd_err}")
+
+    t0 = time.perf_counter()
+    plain = render_pose(tile_p, model_c, model_f, blender_pose(1), IMG, IMG,
+                        Kmat, eval_chunk=EVAL_CHUNK, device=dev)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    # the kink band on each pass's last sample, whose Gaussian depends on its
+    # interval: the coarse z, and the fine z the plain path's coarse pass gives
+    rays = get_camera_rays_grid(
+        torch.from_numpy(Kmat).to(dev), torch.from_numpy(blender_pose(1)).to(dev),
+        image_h=IMG, image_w=IMG, pixel_center=True)
+    radii = pixel_cone_radii(torch.tensor(Kmat[0, 0], device=dev),
+                             rays.d_world_norm[..., 0])
+    packed = [fm.pack_nerf_params(m) for m in (model_c, model_f)]
+    pairs = [([], []), ([], [])]
+    with torch.no_grad():
+        for i in range(0, IMG * IMG, EVAL_CHUNK):
+            sl = slice(i, i + EVAL_CHUNK)
+            ro, rd, rn = rays.o_march[sl], rays.d_march_unit[sl], rays.d_march_norm[sl]
+            vd, ra = rays.d_world_unit[sl], radii[sl]
+            enc_d = positional_encoding(vd, dir_bands)
+            zc = stratified_samples(2.0, 6.0, 64, device=dev).expand(ro.shape[0], 64)
+            _, w_c, _, _ = nerf_forward_pass(
+                model_c, ro, rd, zc, pos_bands=pos_bands, dir_bands=dir_bands,
+                white_bkgd=True, ray_norms=rn, viewdirs_world_unit=vd,
+                infinite_last_bin=True, compute_dtype=torch.bfloat16, ipe=True,
+                radii=ra, device=dev)
+            zf = merge_z_samples(zc, resample_midpoints(zc, w_c, 128,
+                                                        deterministic=True))
+            for j, (m, pk, zz) in enumerate(((model_c, packed[0], zc),
+                                             (model_f, packed[1], zf))):
+                enc = ipe_last_enc(ro, rd, rn, zz, ra, pos_bands)
+                pairs[j][0].append(fm.fused_nerf_apply(pk, enc, enc_d)[:, 3])
+                pairs[j][1].append(m(enc, enc_d, compute_dtype=torch.bfloat16)[:, 3])
+        kink, bands = last_bin_kink([(torch.cat(k), torch.cat(p)) for k, p in pairs])
+    kink = kink.reshape(IMG, IMG).cpu().numpy()
+    drgb = np.abs(frames[1]["rgb"] - plain["rgb"]).max(-1)
+    d_rgb = float(drgb[~kink].max())
+    psnr = compute_psnr(frames[1]["rgb"], plain["rgb"])
+    s_frame = sum(secs[1:]) / max(1, len(secs) - 1)
+    k4_s = n_tiles * (ctx["ipe_coarse_ms"] + ctx["ipe_ms"]) / 1e3
+    print(f"[slice IPE] {N_POSES} frames {IMG}x{IMG}: {secs} s; steady "
+          f"{s_frame:.3f} s/frame = {IMG * IMG / s_frame:.0f} rays/s; plain "
+          f"path {plain_s:.3f} s/frame | {card}", flush=True)
+    print(f"[slice IPE] K4 share of a frame: {n_tiles} x (coarse "
+          f"{ctx['ipe_coarse_ms']:.3f} + fine {ctx['ipe_ms']:.3f} ms) = {k4_s:.3f} s "
+          f"of {s_frame:.3f} s ({100 * k4_s / s_frame:.1f}%)", flush=True)
+    print(f"[slice IPE] frame 1 kernel vs plain path: max|drgb| {d_rgb:.3g} off "
+          f"the kink (tol 2e-2); {int(kink.sum())} pixels at the kink "
+          f"(|logit| < {bands}), whole-frame max|drgb| {float(drgb.max()):.3g}, "
+          f"PSNR {psnr:.2f} dB (min 40)", flush=True)
+    check(kink.sum() <= 0.05 * kink.size,
+          f"IPE frame 1: {int(kink.sum())} pixels at the last-bin kink")
+    check(d_rgb <= 2e-2, f"IPE frame 1 kernel vs plain max |drgb| {d_rgb} > 2e-2")
+    check(psnr >= 40.0, f"IPE frame 1 kernel vs plain PSNR {psnr:.2f} dB < 40")
+    return launches
+
+
+def phase_precision_probe(torch, dev, card, kernels):
+    """7: K5 on the TPU probe's shapes in every mode, counted, each output
+    held against its plain version; timed beside ``torch.matmul``. → its
+    launches."""
+    import numpy as np
+
+    from nerf_sandbox_tpu_torch.ops import precision_probe as pp
+
+    torch.cuda.synchronize()
+    pp.precision_dot.launches = 0
+    rows = pp.run_probe(dev)
+    torch.cuda.synchronize()
+    launches = {"precision_probe": pp.precision_dot.launches}
+    check(launches["precision_probe"] == len(rows),
+          f"K5 launched {launches['precision_probe']} times for {len(rows)} products")
+    worst = 0.0
+    for r in rows:
+        a, b = r["a"], r["b"]
+        plain = pp.precision_dot_plain(a, b, r["mode"])
+        diff = (r["out"].double() - plain).abs()
+        tol = a.shape[1] * 2.0 ** -23 * (a.double().abs() @ b.double().abs())
+        ok = bool((diff <= tol).all())
+        worst = max(worst, float(diff.max()))
+        print(f"[K5] {r['shape']:24s} {r['mode']:7s} vs f64: max_abs "
+              f"{r['max_abs']:.3e} max_rel {r['max_rel']:.3e}; kernel vs plain "
+              f"max|diff| {float(diff.max()):.3e} (within K 2^-23 sum|a||b|: {ok})",
+              flush=True)
+        check(ok and np.isfinite(r["max_abs"]),
+              f"K5 {r['shape']} {r['mode']} differs from its plain version")
+    a, b = next((r["a"], r["b"]) for r in rows if r["shape"].startswith("one-hot"))
+    # single launches are shorter than their host overhead: time them from
+    # CUDA graphs of 100 calls
+    times = {m: graph_ms(torch, lambda m=m: pp.precision_dot(a, b, m))
+             for m in pp.MODES}
+    plain_ms = graph_ms(torch, lambda: pp.precision_dot_plain(a, b, "fp32"))
+    lib_ms = graph_ms(torch, lambda: torch.matmul(a, b))
+    M, K = a.shape
+    N = b.shape[1]
+    b_k5 = bound(0.0, (M * K + K * N + M * N) * 4, 2.0 * M * K * N)
+    print(f"[K5] {M}x{K}x{N}: kernel {times} ms, plain fp32 (fp64 product) "
+          f"{plain_ms:.4f} ms, torch.matmul fp32 {lib_ms:.4f} ms, bound "
+          f"{b_k5[0]:.2e} ms ({b_k5[1]}) | {card}", flush=True)
+    kernels["precision_probe"] = dict(
+        name="precision_probe", route="cuda",
+        source="nerf_sandbox_tpu_torch/csrc/precision_probe.cu",
+        replaces="scripts/probe_mosaic_precision.py:26", max_abs_err=worst,
+        ms=times["fp32"], plain_ms=plain_ms, bound_ms=b_k5[0], bound_by=b_k5[1],
+        library_ms=lib_ms)
     return launches
 
 
@@ -697,6 +1043,11 @@ def run(torch, root):
     # ---- 4b. the 360 configuration: K2c, K3 and K3t on one fine tile ----
     ctx360 = phase_360_tile(torch, dev, card, packed_f, kernels)
 
+    # ---- 4c. K4, the IPE encode, on the Blender and 360 fine tiles ----
+    t4 = dict(ro=ro, rd=rd, rn=rn, vd=vd, z=z, zc=zc, enc_dir=enc_dir, Kmat=Kmat)
+    ctx_ipe = phase_ipe_tile(torch, dev, card, packed_f, packed_d, t4, ctx360,
+                             kernels)
+
     # ---- 5. the slice: render_pose through K2, nerf_forward_pass through K1 ----
     hyper = EvalHyper(model=cfg, use_kernel=True)
     tile_k = make_tile_renderer(hyper, pos_bands, dir_bands, device=dev)
@@ -730,7 +1081,7 @@ def run(torch, root):
     check(fr.fused_raymarch.launches == routes["freq"] == 2 * n_tiles * N_POSES,
           f"K2 launched {fr.fused_raymarch.launches} times ({routes}), expected "
           f"{2 * n_tiles * N_POSES} frequency launches")
-    check(routes["kplanes"] == routes["contract"] == 0,
+    check(routes["kplanes"] == routes["contract"] == routes["ipe"] == 0,
           f"the Blender path ran another K2 instantiation: {routes}")
     check(launches["fused_mlp"] >= 1, "K1 was not launched on the main path")
     for k, f in enumerate(frames):
@@ -784,9 +1135,16 @@ def run(torch, root):
     # ---- 5b. the 360 slice: render_pose through K2c + K3 ----
     launches_360 = phase_360_slice(torch, dev, card, ctx360)
 
+    # ---- 5c. the IPE slice: render_pose through K4 ----
+    launches_ipe = phase_ipe_slice(torch, dev, card, model_c, model_f, t4, ctx_ipe)
+
+    # ---- 7. K5, the precision probe ----
+    launches_probe = phase_precision_probe(torch, dev, card, kernels)
+
     # ---- 6. kernels line ----
     for key, k in kernels.items():
-        k["launches"] = launches[key] if key in launches else launches_360[key]
+        k["launches"] = next(d[key] for d in (launches, launches_360, launches_ipe,
+                                              launches_probe) if key in d)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{f: k[f] for f in order}

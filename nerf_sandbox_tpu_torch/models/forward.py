@@ -4,12 +4,15 @@ Port of ``nerf_sandbox_tpu/models/forward.py:nerf_forward_pass`` (reference
 ``nerf_sandbox/source/utils/render_utils.py:171-283``) for eval:
 ``pts = o + d_unit * (z * ||d_raw||)``, optionally contracted (mip-NeRF 360;
 only the encoder sees the warped points, z stays metric), unit WORLD view
-directions per sample, the frequency encode in fp32 or the k-planes encode
-(the model's ``pos_grid``, in ``compute_dtype``, per-ray times for 4-D
-grids), the MLP in ``compute_dtype``, sigmoid rgb, relu/softplus sigma, then
-``volume_render_rays``. ``use_kernel=True`` routes the MLP to the K1 kernel
-(``ops/fused_mlp.py``) as the JAX ``use_pallas`` does, and the k-planes
-encode to K3's encode-only kernel (``ops/kplanes_encode.py``, bf16 rows).
+directions per sample, the frequency encode in fp32, its integrated form
+(mip-NeRF IPE: each sample a conical-frustum Gaussian over its interval,
+pushed through the contraction's Jacobian when contracting), or the
+k-planes encode (the model's ``pos_grid``, in ``compute_dtype``, per-ray
+times for 4-D grids), the MLP in ``compute_dtype``, sigmoid rgb,
+relu/softplus sigma, then ``volume_render_rays``. ``use_kernel=True`` routes
+the MLP to the K1 kernel (``ops/fused_mlp.py``) as the JAX ``use_pallas``
+does, and the k-planes encode to K3's encode-only kernel
+(``ops/kplanes_encode.py``, bf16 rows).
 
 The encoders and options of the JAX function that are not ported raise.
 """
@@ -19,7 +22,9 @@ from __future__ import annotations
 import torch
 
 from nerf_sandbox_tpu_torch.core.encoding import (
-    encode_dirs, positional_encoding, scene_contract)
+    conical_frustum_moments, contract_gaussian, encode_dirs,
+    integrated_positional_encoding, lift_gaussian_diag, positional_encoding,
+    scene_contract, z_to_intervals)
 from nerf_sandbox_tpu_torch.core.integrator import volume_render_rays
 from nerf_sandbox_tpu_torch.device import resolve_device
 from nerf_sandbox_tpu_torch.models.kplanes import kplanes_encode
@@ -31,14 +36,15 @@ from nerf_sandbox_tpu_torch.ops.kplanes_encode import (
 
 def check_ported_forward(*, pos_encoder: str = "freq", ipe: bool = False,
                          dir_encoder: str = "freq") -> None:
-    """Raise for the forward-pass options this package does not port yet."""
+    """Raise for the forward-pass options this package does not port yet,
+    and for IPE with another encoder than ``freq``."""
     if pos_encoder not in ("freq", "kplanes"):
         item = {"hashgrid": "P7 item 8"}.get(pos_encoder, "P7")
         raise NotImplementedError(
             f"pos_encoder={pos_encoder!r} is ROADMAP queue 1, {item}")
-    if ipe:
-        raise NotImplementedError(
-            "IPE is ROADMAP queue 1, P7 item 5 (kernel K4)")
+    if ipe and pos_encoder != "freq":
+        raise ValueError(f"IPE applies to the freq encoder only, not "
+                         f"pos_encoder={pos_encoder!r}")
     if dir_encoder != "freq":
         raise NotImplementedError(
             "spherical-harmonics dirs are ROADMAP queue 1, P7 item 6")
@@ -65,7 +71,8 @@ def nerf_forward_pass(
     pos_encoder: str = "freq",
     enc_cfg=None,                    # KPlanesConfig for pos_encoder="kplanes"
     scene_contraction: bool = False,
-    ipe: bool = False,
+    ipe: bool = False,               # mip-NeRF integrated positional encoding
+    radii: torch.Tensor | None = None,   # (B,) or (B,1) pixel-cone radii (IPE)
     dir_encoder: str = "freq",
     t: torch.Tensor | None = None,   # (B,) normalised times (4-D k-planes)
     device=None,
@@ -75,6 +82,7 @@ def nerf_forward_pass(
     Runs on ``cuda`` unless ``device="cpu"``; the model must be on that
     device. ``use_kernel=True`` runs the MLP through K1 (bf16) and a k-planes
     encode through K3, which folds a 4-D grid at one time (all ``t`` equal).
+    ``ipe=True`` needs the frequency encoder and per-ray ``radii``.
     """
     check_ported_forward(pos_encoder=pos_encoder, ipe=ipe,
                          dir_encoder=dir_encoder)
@@ -93,7 +101,22 @@ def nerf_forward_pass(
         ray_norms = ray_norms.to(dev, torch.float32)
         z_metric = z_vals * ray_norms.reshape(B, 1)
     pts = rays_o[:, None, :] + rays_d_unit[:, None, :] * z_metric[..., None]
-    if scene_contraction:
+    ipe_gaussian = None
+    if ipe:
+        # each sample becomes the Gaussian of its conical frustum; under
+        # contraction the Gaussian is pushed through the warp instead of the
+        # points (JAX models/forward.py:72-93)
+        if radii is None:
+            raise ValueError("IPE needs per-ray pixel-cone radii")
+        lower, upper = z_to_intervals(z_metric)
+        t_mean, t_var, r_var = conical_frustum_moments(
+            lower, upper, radii.to(dev, torch.float32).reshape(B, 1))
+        mean, var = lift_gaussian_diag(rays_d_unit, t_mean, t_var, r_var,
+                                       rays_o)
+        if scene_contraction:
+            mean, var = contract_gaussian(mean, rays_d_unit, t_var, r_var)
+        ipe_gaussian = (mean, var)
+    elif scene_contraction:
         pts = scene_contract(pts)
 
     if viewdirs_world_unit is not None:
@@ -106,7 +129,12 @@ def nerf_forward_pass(
 
     # Encode in fp32 (sin/cos of large 2^k x need the fp32 mantissa), then
     # run the MLP in compute_dtype.
-    if pos_encoder == "kplanes":
+    if ipe_gaussian is not None:
+        mean, var = ipe_gaussian
+        enc_pos = integrated_positional_encoding(
+            mean.reshape(-1, 3), var.reshape(-1, 3), pos_bands,
+            include_input=pos_include_input)
+    elif pos_encoder == "kplanes":
         enc_pos = _kplanes_rows(model, pts.reshape(-1, 3), enc_cfg, t, B, N,
                                 compute_dtype, use_kernel, dev)
     else:

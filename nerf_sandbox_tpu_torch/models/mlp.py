@@ -185,7 +185,10 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
     The inverse of ``params_from_torch_state_dict`` (JAX ``mlp.py:211-228``).
     A k-planes ``pos_grid`` dict becomes ``pos_grid.<table>`` entries, array
-    for array (load it into a model built with ``grid_cfg``).
+    for array (load it into a model built with ``grid_cfg``). An IPE-trained
+    model converts like any frequency model: mip-NeRF's integrated encoding
+    has no parameters and keeps the frequency encoder's columns, so render
+    it with ``EvalHyper(ipe=True)``.
     """
     def lin(prefix, leaf):
         return {f"{prefix}.weight": torch.from_numpy(

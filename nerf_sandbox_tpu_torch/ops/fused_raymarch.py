@@ -1,11 +1,14 @@
-"""K2: the fused eval ray-march (``csrc/fused_raymarch.cu``), with K2c and K3.
+"""K2: the fused eval ray-march (``csrc/fused_raymarch.cu``), with K2c, K3 and K4.
 
 Replaces the TPU kernel ``nerf_sandbox_tpu/ops/fused_raymarch.py:fused_raymarch``
 (Pallas bodies ``_kernel`` / ``_kernel_chunk_body``): per ray,
 ``pts = o + d̂·z·‖d‖`` → [K2c: the mip-NeRF 360 contraction of the points]
 → the fp32 sin/cos encode or [K3: the k-planes encode, ``ops/kplanes_encode.py``]
-→ the K1 MLP → sigmoid rgb, relu/softplus σ → ``α = 1-exp(-clip(σΔ,0,60))``
-→ ``T = exp(Σ log(1-α+1e-10))`` → per-sample weights and per-ray Σw, Σw·z,
+or [K4: mip-NeRF's integrated positional encoding, each sample a
+conical-frustum Gaussian over its interval, lifted to a diagonal Gaussian or
+pushed through the contraction's closed-form Jacobian, each sin/cos column
+attenuated by ``exp(-½f²σ²)``] → the K1 MLP → sigmoid rgb, relu/softplus σ
+→ ``α = 1-exp(-clip(σΔ,0,60))`` → ``T = exp(Σ log(1-α+1e-10))`` → per-sample weights and per-ray Σw, Σw·z,
 Σw·rgb (+ white background), with optional early ray termination (ERT).
 
 Bound on the H100: the MLP's ~1.2 MFLOP of bf16 work per sample against
@@ -22,8 +25,13 @@ kernel's bf16 rounding points; it marches every sample (ERT changes each
 output by less than ``ert_eps`` per channel). :func:`fused_raymarch` takes it
 only for CPU tensors; for CUDA tensors it launches the kernel or raises, and
 counts the launch in ``fused_raymarch.launches`` and, per route (``freq``,
-``kplanes``, ``contract``, ``tfold``: the branches the launch ran), in
-``fused_raymarch.route_launches``.
+``kplanes`` or ``ipe``: the encoder; ``contract``, ``tfold``: the other
+branches the launch ran), in ``fused_raymarch.route_launches``.
+
+K4 computes each sample's interval from its neighbours in the kernel (the
+row of z is in device memory; the TPU streamed μ and the half-width because
+a chunk cannot see its neighbours), so the IPE launch reads no more than a
+frequency launch besides the per-ray radius.
 """
 
 from __future__ import annotations
@@ -33,7 +41,9 @@ import ctypes
 import numpy as np
 import torch
 
-from nerf_sandbox_tpu_torch.core.encoding import positional_encoding, scene_contract
+from nerf_sandbox_tpu_torch.core.encoding import (
+    conical_frustum_moments, integrated_positional_encoding, lift_gaussian_diag,
+    positional_encoding, scene_contract, z_to_intervals)
 from nerf_sandbox_tpu_torch.device import resolve_device
 from nerf_sandbox_tpu_torch.models.mlp import NeRFMLP
 from nerf_sandbox_tpu_torch.ops import cuda_build
@@ -46,7 +56,7 @@ from nerf_sandbox_tpu_torch.ops.kplanes_encode import (
 
 RAYS_PER_BLOCK = 16          # csrc/fused_raymarch.cu: RAYS
 MAX_BANDS = 32               # csrc/fused_raymarch.cu: MAX_BANDS
-ROUTES = ("freq", "kplanes", "contract", "tfold")
+ROUTES = ("freq", "kplanes", "ipe", "contract", "tfold")
 
 
 def _deltas(z_vals: torch.Tensor, ray_norms: torch.Tensor,
@@ -58,18 +68,55 @@ def _deltas(z_vals: torch.Tensor, ray_norms: torch.Tensor,
     return torch.cat([d_fin, d_last], dim=1) * ray_norms.reshape(B, 1)
 
 
+def contract_gaussian_closed_form(mean, d_unit, t_var, r_var):
+    """K4's pushforward of frustum Gaussians through the contraction, with
+    the Pallas body's closed-form Jacobian (JAX fused_raymarch.py:456-474):
+    for n = ‖x‖ > 1, J = s·I + c·xxᵀ with s = 2/n − 1/n², c = 2(1−n)/n⁴, so
+    Jd = s·d + c·x(x·d) and rowsum(J∘J) = s² + 2scx² + c²x²n²; J = I inside
+    the unit ball. ``mean`` (b, N, 3), ``d_unit`` (b, 3), ``t_var``/``r_var``
+    (b, N) → (contracted mean, var_diag), each (b, N, 3)."""
+    x, d = mean, d_unit[:, None, :]
+    n2 = torch.clamp(torch.sum(x * x, dim=-1, keepdim=True), min=1e-18)
+    n = torch.sqrt(n2)
+    s = 2.0 / n - 1.0 / n2
+    c = 2.0 * (1.0 - n) / (n2 * n2)
+    xd = torch.sum(x * d, dim=-1, keepdim=True)
+    inside = n <= 1.0
+    jd = torch.where(inside, d, s * d + c * x * xd)
+    row2 = torch.where(inside, 1.0, s * s + 2.0 * s * c * x * x + c * c * x * x * n2)
+    var = (t_var[..., None] * jd ** 2
+           + r_var[..., None] * torch.clamp(row2 - jd ** 2, min=0.0))
+    return torch.where(inside, x, (2.0 - 1.0 / n) * (x / n)), var
+
+
+def ipe_gaussians(rays_o, rays_d_unit, z_metric, radii, contract: bool):
+    """K4's per-sample Gaussians: intervals from the neighbouring samples
+    (JAX fused_raymarch.py:634-642), the frustum moments, then the diagonal
+    lift or the closed-form pushforward (:446-478). ``z_metric`` (b, N),
+    N >= 2, ``radii`` (b,) → (mean, var_diag), each (b, N, 3)."""
+    lower, upper = z_to_intervals(z_metric)
+    t_mean, t_var, r_var = conical_frustum_moments(lower, upper,
+                                                   radii.reshape(-1, 1))
+    mean, var = lift_gaussian_diag(rays_d_unit, t_mean, t_var, r_var, rays_o)
+    if contract:
+        return contract_gaussian_closed_form(mean, rays_d_unit, t_var, r_var)
+    return mean, var
+
+
 def fused_raymarch_plain(packed: PackedMLP, rays_o, rays_d_unit, z_vals, dt,
                          ray_norms, enc_dir, pos_bands, *,
                          pos_include_input: bool = True,
                          sigma_activation: str = "relu",
                          white_bkgd: bool = True, contract: bool = False,
-                         kp: PackedKPlanes | None = None):
+                         kp: PackedKPlanes | None = None, radii=None):
     """K2's plain PyTorch version, on any device → (raw (B, 5), w (B, N)).
 
     ``raw`` holds Σw·rgb (+ background), clipped Σw and Σw·z per ray, as the
     kernel writes them. ``contract`` warps the points (K2c); ``kp`` encodes
-    them with the packed k-planes tables (K3) instead of ``pos_bands``. Rays
-    are processed in chunks of about 2^18 samples.
+    them with the packed k-planes tables (K3) instead of ``pos_bands``;
+    ``radii`` (B,) encodes each sample's frustum Gaussian instead (K4, fp32,
+    then one bf16 cast), contracted by the closed-form pushforward when
+    ``contract``. Rays are processed in chunks of about 2^18 samples.
     """
     B, N = z_vals.shape
     ep_pad, ed_pad = _enc_pads(packed.cfg)
@@ -81,16 +128,24 @@ def fused_raymarch_plain(packed: PackedMLP, rays_o, rays_d_unit, z_vals, dt,
         z = z_vals[sl]
         b = z.shape[0]
         zm = z * ray_norms[sl].reshape(b, 1)
-        pts = (rays_o[sl, None, :] + rays_d_unit[sl, None, :] * zm[..., None]
-               ).reshape(-1, 3)
-        if contract:
-            pts = scene_contract(pts)
-        if kp is not None:
-            ep = kplanes_encode_plain(kp, pts, ep_pad)
-        else:
-            enc = positional_encoding(pts, pos_bands,
-                                      include_input=pos_include_input)
+        if radii is not None:
+            mean, var = ipe_gaussians(rays_o[sl], rays_d_unit[sl], zm,
+                                      radii[sl], contract)
+            enc = integrated_positional_encoding(
+                mean.reshape(-1, 3), var.reshape(-1, 3), pos_bands,
+                include_input=pos_include_input)
             ep = pad_cols_bf16(enc.to(torch.bfloat16), ep_pad)
+        else:
+            pts = (rays_o[sl, None, :] + rays_d_unit[sl, None, :] * zm[..., None]
+                   ).reshape(-1, 3)
+            if contract:
+                pts = scene_contract(pts)
+            if kp is not None:
+                ep = kplanes_encode_plain(kp, pts, ep_pad)
+            else:
+                enc = positional_encoding(pts, pos_bands,
+                                          include_input=pos_include_input)
+                ep = pad_cols_bf16(enc.to(torch.bfloat16), ep_pad)
         ed = ed_all[sl].repeat_interleave(N, dim=0)
         out = mlp_rows_plain(packed, ep, ed)
         rgb = torch.sigmoid(out[:, :3]).reshape(b, N, 3)
@@ -114,7 +169,7 @@ def fused_raymarch_plain(packed: PackedMLP, rays_o, rays_d_unit, z_vals, dt,
 def _launch(packed: PackedMLP, rays_o, rays_d_unit, z_vals, dt, ray_norms,
             enc_dir, bands: np.ndarray, *, pos_include_input: bool,
             sigma_activation: str, white_bkgd: bool, ert_eps: float,
-            contract: bool, kp: PackedKPlanes | None):
+            contract: bool, kp: PackedKPlanes | None, radii):
     """Launch K2 on the current stream (inputs on one CUDA device)."""
     cfg = packed.cfg
     B, N = z_vals.shape
@@ -122,7 +177,10 @@ def _launch(packed: PackedMLP, rays_o, rays_d_unit, z_vals, dt, ray_norms,
     f32 = [t.to(torch.float32).contiguous()
            for t in (rays_o, rays_d_unit, ray_norms.reshape(B), enc_dir,
                      z_vals, dt)]
-    on_card = f32 + [packed.flat] + ([kp.flat] if kp is not None else [])
+    if radii is not None:
+        radii = radii.contiguous()
+    on_card = (f32 + [packed.flat] + ([kp.flat] if kp is not None else [])
+               + ([radii] if radii is not None else []))
     if any(t.device != dev or t.device.type != "cuda" for t in on_card):
         raise ValueError("fused_raymarch: all tensors must be on one CUDA device")
     ro, rd, rn, ed, z, d = f32
@@ -150,8 +208,8 @@ def _launch(packed: PackedMLP, rays_o, rays_d_unit, z_vals, dt, ray_norms,
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_float)]
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
                    + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 11
-                   + [ctypes.c_float, ctypes.c_int] + KP_C_ARGTYPES
-                   + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+                   + KP_C_ARGTYPES + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(_ptr(ro), _ptr(rd), _ptr(rn), _ptr(ed), _ptr(z), _ptr(d),
@@ -162,12 +220,13 @@ def _launch(packed: PackedMLP, rays_o, rays_d_unit, z_vals, dt, ray_norms,
              int(sigma_activation == "softplus"), int(white_bkgd),
              int(ert_eps > 0.0),
              float(np.log(ert_eps)) if ert_eps > 0.0 else 0.0,
-             int(contract), *kp_args,
+             int(contract), None if radii is None else _ptr(radii), *kp_args,
              _ptr(out_ray), _ptr(out_w), ctypes.c_void_p(stream))
     cuda_build.check(lib, err, "fused_raymarch kernel launch")
     fused_raymarch.launches += 1
     routes = fused_raymarch.route_launches
-    routes["kplanes" if kp is not None else "freq"] += 1
+    routes["kplanes" if kp is not None else "ipe" if radii is not None
+           else "freq"] += 1
     routes["contract"] += int(contract)
     routes["tfold"] += int(kp is not None and kp.t is not None)
     return out_ray, out_w
@@ -188,18 +247,18 @@ def fused_raymarch(model: NeRFMLP | PackedMLP, rays_o, rays_d_unit, z_vals, ray_
     moves by less than ``ert_eps`` per channel; skipped weights are 0).
 
     ``scene_contraction`` warps the points before the encode (K2c).
-    ``kp_params`` (a ``KPlanes``, a dict of its tables, or a
-    :class:`PackedKPlanes` packed once per render) with ``kp_cfg`` replaces
-    the frequency encoder by the k-planes encode (K3); a 4-D model folds its
-    time planes at the frame's time ``kp_t``.
+    ``ipe_radii`` (B,) or (B, 1) pixel-cone radii switch the frequency
+    encode to mip-NeRF's integrated positional encoding of each sample's
+    frustum Gaussian (K4; needs N >= 2), pushed through the contraction's
+    Jacobian under ``scene_contraction``. ``kp_params`` (a ``KPlanes``, a
+    dict of its tables, or a :class:`PackedKPlanes` packed once per render)
+    with ``kp_cfg`` replaces the frequency encoder by the k-planes encode
+    (K3); a 4-D model folds its time planes at the frame's time ``kp_t``.
 
     Runs on ``cuda`` (the K2 kernel) unless ``device="cpu"`` (the plain
     version); the model's parameters (or its :class:`PackedMLP`) and the
     tables must already be on that device.
     """
-    if ipe_radii is not None:
-        raise NotImplementedError(
-            "the in-kernel IPE encode is kernel K4 (ROADMAP queue 2)")
     dev = resolve_device(device)
     packed = as_packed(model)
     if packed.flat.device.type != dev.type:
@@ -220,12 +279,25 @@ def fused_raymarch(model: NeRFMLP | PackedMLP, rays_o, rays_d_unit, z_vals, ray_
     rays_o, rays_d_unit, z_vals, ray_norms, enc_dir = (
         t.to(dev, torch.float32)
         for t in (rays_o, rays_d_unit, z_vals, ray_norms, enc_dir))
+    radii = None
+    if ipe_radii is not None:
+        if kp is not None:
+            raise ValueError("IPE applies to the frequency encoder only; got "
+                             "ipe_radii with kp_params")
+        B, N = z_vals.shape
+        radii = torch.as_tensor(ipe_radii).to(dev, torch.float32)
+        if tuple(radii.shape) not in ((B,), (B, 1)):
+            raise ValueError(f"ipe_radii must be ({B},) or ({B}, 1), got "
+                             f"{tuple(radii.shape)}")
+        if N < 2:
+            raise ValueError("IPE needs at least two samples per ray")
+        radii = radii.reshape(B)
     bands = np.asarray([] if pos_bands is None else pos_bands,
                        np.float32).reshape(-1)
     dt = _deltas(z_vals, ray_norms, infinite_last_bin)
     kw = dict(pos_include_input=pos_include_input,
               sigma_activation=sigma_activation, white_bkgd=white_bkgd,
-              contract=bool(scene_contraction), kp=kp)
+              contract=bool(scene_contraction), kp=kp, radii=radii)
     if dev.type == "cpu":
         raw, w = fused_raymarch_plain(packed, rays_o, rays_d_unit, z_vals, dt,
                                       ray_norms, enc_dir, bands, **kw)

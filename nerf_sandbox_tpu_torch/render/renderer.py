@@ -11,8 +11,10 @@ in world or NDC space. ``eval_chunk`` is the per-tile ray count.
 (``ops/fused_raymarch.py``) for both passes, as the JAX ``use_pallas`` does;
 ``use_kernel=False`` is the plain path (``nerf_forward_pass`` with the MLP in
 ``compute_dtype``). Both take the k-planes encoder (``pos_encoder="kplanes"``,
-``enc_cfg``, the models' ``pos_grid``), the mip-NeRF 360 contraction and, for
-4-D grids, the frame's time. On the kernel path a render packs each model
+``enc_cfg``, the models' ``pos_grid``), mip-NeRF's integrated positional
+encoding (``ipe``, with the per-ray pixel-cone radii that ``render_pose``
+computes), the mip-NeRF 360 contraction and, for 4-D grids, the frame's
+time. On the kernel path a render packs each model
 once (``render_tile.prepare``), its 4-D grid folded at the frame's time.
 PyTorch runs eagerly, so a tile is a Python call, not a compiled program;
 the occupancy and proposal sampling modes raise.
@@ -25,7 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from nerf_sandbox_tpu_torch.core.encoding import encode_dirs
+from nerf_sandbox_tpu_torch.core.encoding import encode_dirs, pixel_cone_radii
 from nerf_sandbox_tpu_torch.core.rays import get_camera_rays_grid
 from nerf_sandbox_tpu_torch.core.sampling import (
     merge_z_samples, perturb_z_samples, resample_midpoints, stratified_samples)
@@ -81,8 +83,9 @@ class KernelModel(NamedTuple):
 
 def make_tile_renderer(hyper: EvalHyper, pos_bands, dir_bands, *, device=None):
     """→ ``render_tile(model_c, model_f, ro, rd, rn, vd, generator=None,
-    t=None)`` returning (rgb (T,3), acc (T,1), depth (T,1)) for one tile of
-    rays; ``t`` (T,) are the rays' normalised times, needed by 4-D k-planes.
+    t=None, radii=None)`` returning (rgb (T,3), acc (T,1), depth (T,1)) for
+    one tile of rays; ``t`` (T,) are the rays' normalised times, needed by
+    4-D k-planes; ``radii`` (T,) or (T,1) the pixel-cone radii, needed by IPE.
 
     Runs on ``cuda`` unless ``device="cpu"``; the tile renderer's device is
     ``render_tile.device``. ``render_tile.prepare(model, t=None)`` packs a
@@ -115,7 +118,7 @@ def make_tile_renderer(hyper: EvalHyper, pos_bands, dir_bands, *, device=None):
         grid = pack_kplanes(model.pos_grid, hyper.enc_cfg, t=t) if kp else None
         return KernelModel(pack_nerf_params(model), grid)
 
-    def forward(model, ro, rd, rn, vd, z, t):
+    def forward(model, ro, rd, rn, vd, z, t, radii):
         if hyper.use_kernel:
             km = prepare(model, t)
             vn = torch.linalg.vector_norm(vd, dim=-1, keepdim=True)
@@ -130,7 +133,7 @@ def make_tile_renderer(hyper: EvalHyper, pos_bands, dir_bands, *, device=None):
                 ert_eps=hyper.eval_ert_eps,
                 scene_contraction=hyper.scene_contraction,
                 kp_params=km.grid, kp_cfg=hyper.enc_cfg if kp else None,
-                device=dev)
+                ipe_radii=radii, device=dev)
         return nerf_forward_pass(
             model, ro, rd, z, pos_bands=pos_bands, dir_bands=dir_bands,
             pos_include_input=hyper.pos_include_input,
@@ -140,13 +143,18 @@ def make_tile_renderer(hyper: EvalHyper, pos_bands, dir_bands, *, device=None):
             infinite_last_bin=hyper.infinite_last_bin,
             compute_dtype=compute_dtype, pos_encoder=hyper.pos_encoder,
             enc_cfg=hyper.enc_cfg, scene_contraction=hyper.scene_contraction,
-            t=t, device=dev)
+            ipe=hyper.ipe, radii=radii, t=t, device=dev)
 
     @torch.no_grad()
     def render_tile(model_c, model_f, rays_o, rays_d_unit, ray_norms, viewdirs,
-                    generator: torch.Generator | None = None, t=None):
+                    generator: torch.Generator | None = None, t=None,
+                    radii=None):
         T = rays_o.shape[0]
         t = t if dynamic else None
+        if not hyper.ipe:
+            radii = None
+        elif radii is None:
+            raise ValueError("EvalHyper.ipe needs per-ray radii")
         z = stratified_samples(hyper.samp_near, hyper.samp_far, hyper.nc_eval,
                                lindisp=hyper.lindisp, device=dev)
         z = z.expand(T, hyper.nc_eval)
@@ -154,7 +162,7 @@ def make_tile_renderer(hyper: EvalHyper, pos_bands, dir_bands, *, device=None):
             z = perturb_z_samples(z, generator=generator)
 
         comp_c, w_c, acc_c, depth_c = forward(model_c, rays_o, rays_d_unit,
-                                              ray_norms, viewdirs, z, t)
+                                              ray_norms, viewdirs, z, t, radii)
         if hyper.nf_eval <= 0 or model_f is None:
             return comp_c, acc_c, depth_c
 
@@ -171,7 +179,8 @@ def make_tile_renderer(hyper: EvalHyper, pos_bands, dir_bands, *, device=None):
             comp_s, _, acc_s, depth_s = forward(
                 model_f, rays_o[top], rays_d_unit[top], ray_norms[top],
                 viewdirs[top], merge_z_samples(z_s, zf),
-                None if t is None else t[top])
+                None if t is None else t[top],
+                None if radii is None else radii[top])
             comp_f, acc_f, depth_f = comp_c.clone(), acc_c.clone(), depth_c.clone()
             comp_f[top], acc_f[top], depth_f[top] = comp_s, acc_s, depth_s
             return comp_f, acc_f, depth_f
@@ -179,10 +188,11 @@ def make_tile_renderer(hyper: EvalHyper, pos_bands, dir_bands, *, device=None):
         zf = resample_midpoints(z, w_c, hyper.nf_eval, deterministic=True)
         comp_f, _, acc_f, depth_f = forward(model_f, rays_o, rays_d_unit,
                                             ray_norms, viewdirs,
-                                            merge_z_samples(z, zf), t)
+                                            merge_z_samples(z, zf), t, radii)
         return comp_f, acc_f, depth_f
 
     render_tile.device = dev
+    render_tile.ipe = hyper.ipe
     render_tile.prepare = prepare
     return render_tile
 
@@ -198,14 +208,15 @@ def _check_tile_device(render_tile, device) -> torch.device:
 def render_rays_chunked(render_tile, model_c, model_f, rays_o, rays_d_unit,
                         ray_norms, viewdirs, *, eval_chunk: int = 16384,
                         generator: torch.Generator | None = None, t=None,
-                        device=None) -> dict:
+                        radii=None, device=None) -> dict:
     """Render any number of rays in fixed tiles → {rgb, acc, depth} tensors.
 
     The last tile is padded by WRAPPING the leading rays (JAX
     renderer.py:361-367): duplicated real rays rank exactly like their
     originals under ``eval_fine_frac`` culling, and their outputs are cut.
-    ``t`` (n,) are the rays' normalised times (4-D k-planes). The models are
-    packed for the kernel once, before the first tile.
+    ``t`` (n,) are the rays' normalised times (4-D k-planes), ``radii`` (n,)
+    or (n, 1) their pixel-cone radii (IPE). The models are packed for the
+    kernel once, before the first tile.
     """
     dev = _check_tile_device(render_tile, device)
     n = rays_o.shape[0]
@@ -219,6 +230,7 @@ def render_rays_chunked(render_tile, model_c, model_f, rays_o, rays_d_unit,
     ro, rd, vd = pad(rays_o), pad(rays_d_unit), pad(viewdirs)
     rn = pad(ray_norms.reshape(n, 1))
     tt = None if t is None else pad(t.reshape(n))
+    ra = None if radii is None else pad(radii.reshape(n, 1))
     model_c = render_tile.prepare(model_c, tt)
     model_f = render_tile.prepare(model_f, tt)
 
@@ -227,7 +239,8 @@ def render_rays_chunked(render_tile, model_c, model_f, rays_o, rays_d_unit,
         rgb, acc, depth = render_tile(model_c, model_f, ro[i:i + tile],
                                       rd[i:i + tile], rn[i:i + tile],
                                       vd[i:i + tile], generator,
-                                      None if tt is None else tt[i:i + tile])
+                                      None if tt is None else tt[i:i + tile],
+                                      None if ra is None else ra[i:i + tile])
         outs["rgb"].append(rgb)
         outs["acc"].append(acc)
         outs["depth"].append(depth)
@@ -244,14 +257,22 @@ def render_pose(render_tile, model_c, model_f, c2w, H: int, W: int, K, *,
     WORLD rays feed the MLP's view-direction branch; marching rays are NDC
     when requested (render_utils.py:426-527 semantics). ``time``: the frame's
     normalised capture time, given to every ray (4-D k-planes; ignored by
-    static renderers).
+    static renderers). Outside NDC every ray carries its pixel-cone radius
+    (JAX renderer.py:408-413), which an IPE tile renderer encodes; IPE with
+    NDC raises, as the radii are undefined after the warp.
     """
     dev = _check_tile_device(render_tile, device)
+    if use_ndc and render_tile.ipe:
+        raise ValueError("IPE needs pixel-cone radii, which are undefined "
+                         "after the NDC warp")
     K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
     c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=dev)
     rays = get_camera_rays_grid(K, c2w, image_h=H, image_w=W,
                                 convention=convention, pixel_center=True,
                                 as_ndc=use_ndc, near_plane=float(near_plane))
+    radii = None
+    if not use_ndc:
+        radii = pixel_cone_radii(K[0, 0], rays.d_world_norm[..., 0])
     t = None
     if time is not None:
         t = torch.full((rays.o_march.shape[0],), float(time),
@@ -259,7 +280,8 @@ def render_pose(render_tile, model_c, model_f, c2w, H: int, W: int, K, *,
     out = render_rays_chunked(render_tile, model_c, model_f, rays.o_march,
                               rays.d_march_unit, rays.d_march_norm,
                               rays.d_world_unit, eval_chunk=eval_chunk,
-                              generator=generator, t=t, device=dev)
+                              generator=generator, t=t, radii=radii,
+                              device=dev)
     return {"rgb": out["rgb"].cpu().numpy().reshape(H, W, 3),
             "acc": out["acc"].cpu().numpy().reshape(H, W, 1),
             "depth": out["depth"].cpu().numpy().reshape(H, W, 1)}

@@ -1,6 +1,6 @@
 """The CUDA kernels K1 (fused MLP), K2 (fused ray-march, with its K2c
-contraction and K3 k-planes branches) and K3's encode-only entry against
-their plain PyTorch versions, on the card. Every test here carries the ``cuda``
+contraction, K3 k-planes and K4 IPE branches), K3's encode-only entry and K5
+(the precision probe) against their plain PyTorch versions, on the card. Every test here carries the ``cuda``
 marker and skips without a CUDA device (the ``cuda`` fixture decides at run
 time). This file imports neither JAX nor the JAX package, so it also runs on
 a machine that has only PyTorch:
@@ -11,7 +11,9 @@ Tolerances: K1 0.05 (the JAX fused-MLP test's bf16 bound); K2 comp, weights
 and acc 2e-2, depth 0.1 (``tests/test_fused_raymarch.py``) on rays off the
 infinite last bin's step (``chip_smoke.last_bin_kink``), and weights before
 the last sample on every ray; ERT against none 1e-3; padding 1e-5; K3
-encode-only within one bf16 ulp of its plain version, |Δ| <= 2^-7·max(1, |v|).
+encode-only within one bf16 ulp of its plain version, |Δ| <= 2^-7·max(1, |v|);
+K5 within K·2^-23·Σ|a||b| of its plain version (fp32 accumulation of K
+products).
 """
 
 import numpy as np
@@ -19,12 +21,14 @@ import pytest
 import torch
 
 from nerf_sandbox_tpu_torch.core.encoding import (
-    positional_encoding, scene_contract, vanilla_encoders)
+    integrated_positional_encoding, positional_encoding, scene_contract,
+    vanilla_encoders)
 from nerf_sandbox_tpu_torch.models.kplanes import KPlanesConfig
 from nerf_sandbox_tpu_torch.models.mlp import NeRFConfig, NeRFMLP
 from nerf_sandbox_tpu_torch.ops import fused_mlp as fm
 from nerf_sandbox_tpu_torch.ops import fused_raymarch as fr
 from nerf_sandbox_tpu_torch.ops import kplanes_encode as ke
+from nerf_sandbox_tpu_torch.ops import precision_probe as pp
 from nerf_sandbox_tpu_torch.render.renderer import (
     EvalHyper, make_tile_renderer, render_pose)
 from nerf_sandbox_tpu_torch.render.validation import compute_psnr
@@ -339,3 +343,132 @@ def test_contracted_kplanes_render_pose_on_the_card(cuda):
         assert np.isfinite(f["rgb"]).all()
         assert f["rgb"].min() >= 0.0 and f["rgb"].max() <= 1.0
     assert compute_psnr(frames["kernel"]["rgb"], frames["plain"]["rgb"]) >= 30.0
+
+
+def _radii(b, seed, dev, hi=3e-2):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.uniform(5e-4, hi, (b,)).astype(np.float32)).to(dev)
+
+
+def _k4_pair(m, rays, radii, contract, **kw):
+    """K2's IPE instantiation (K4) against its plain version, and the rays
+    off the last-bin kink (its band measured on the last sample's IPE rows
+    with K1 and its plain version)."""
+    o, d, nr, z = rays
+    pos_b, dir_b = vanilla_encoders()
+    ed = positional_encoding(d, dir_b)
+    got = fr.fused_raymarch(m, o, d, z, nr, ed, pos_b, ipe_radii=radii,
+                            scene_contraction=contract, **kw)
+    packed = fm.pack_nerf_params(m)
+    want = fr.fixup_outputs(*fr.fused_raymarch_plain(
+        packed, o, d, z, fr._deltas(z, nr, True), nr, ed, pos_b,
+        contract=contract, radii=radii))
+    mean, var = fr.ipe_gaussians(o, d, z * nr[:, None], radii, contract)
+    enc = integrated_positional_encoding(mean[:, -1], var[:, -1], pos_b)
+    k_logit = fm.fused_nerf_apply(packed, enc, ed)[:, 3]
+    p_logit = fm.fused_nerf_apply_plain(packed, enc, ed)[:, 3]
+    band = 2.0 * float((k_logit - p_logit).abs().max())
+    return got, want, p_logit.abs() >= band
+
+
+@pytest.mark.parametrize("contract", [False, True], ids=["lift", "contracted"])
+@pytest.mark.parametrize("shape", [(37, 21), (301, 63), (4095, 192)])
+def test_k4_matches_plain(cuda, contract, shape):
+    """B not a multiple of the 16-ray block, N not a multiple of the 4
+    samples per tile row group; rays out to radius ~7, so both branches of
+    the contraction run."""
+    m = _model(VANILLA, 2, cuda)
+    fr.reset_launches()
+    got, want, off = _k4_pair(m, _rays(*shape, 3, cuda), _radii(shape[0], 4, cuda),
+                              contract)
+    torch.cuda.synchronize()
+    routes = fr.fused_raymarch.route_launches
+    assert fr.fused_raymarch.launches == 1 and routes["ipe"] == 1
+    assert routes["freq"] == routes["kplanes"] == 0
+    assert routes["contract"] == int(contract)
+    assert int(off.sum()) >= 0.95 * shape[0]
+    for g, w, tol in zip(got, want, (2e-2, 2e-2, 2e-2, 0.1)):
+        assert torch.isfinite(g).all()
+        assert float((g[off] - w[off]).abs().max()) <= tol
+    assert float((got[1][:, :-1] - want[1][:, :-1]).abs().max()) <= 2e-2
+
+
+def test_k4_early_termination(cuda):
+    m = _model(VANILLA, 6, cuda, sigma_shift=10.0)
+    o, d, nr, z = _rays(2048, 192, 7, cuda)
+    radii = _radii(2048, 8, cuda)
+    pos_b, dir_b = vanilla_encoders()
+    ed = positional_encoding(d, dir_b)
+    full = fr.fused_raymarch(m, o, d, z, nr, ed, pos_b, ipe_radii=radii)
+    ert = fr.fused_raymarch(m, o, d, z, nr, ed, pos_b, ipe_radii=radii,
+                            ert_eps=1e-4)
+    for f, e in zip(full, ert):
+        assert float((f - e).abs().max()) <= 1e-3
+    assert float((ert[1] == 0).float().mean()) > 0.5
+
+
+def test_ipe_render_pose_on_the_card(cuda):
+    mc, mf = _model(VANILLA, 8, cuda), _model(VANILLA, 9, cuda)
+    pos_b, dir_b = vanilla_encoders()
+    K = np.array([[40.0, 0, 16], [0, 40.0, 16], [0, 0, 1]], np.float32)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = 4.0
+    frames = {}
+    fr.reset_launches()
+    for key, kw in (("kernel", dict(use_kernel=True)),
+                    ("plain", dict(use_kernel=False))):
+        tile = make_tile_renderer(EvalHyper(model=VANILLA, ipe=True, **kw), pos_b,
+                                  dir_b, device=cuda)
+        frames[key] = render_pose(tile, mc, mf, c2w, 32, 32, K, eval_chunk=300,
+                                  device=cuda)
+    routes = fr.fused_raymarch.route_launches
+    assert routes["ipe"] == 2 * 4 and routes["freq"] == 0
+    for f in frames.values():
+        assert np.isfinite(f["rgb"]).all()
+        assert f["rgb"].min() >= 0.0 and f["rgb"].max() <= 1.0
+    assert compute_psnr(frames["kernel"]["rgb"], frames["plain"]["rgb"]) >= 30.0
+
+
+def test_ipe_on_cuda_never_takes_the_plain_version(cuda, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("a CUDA call reached a plain version")
+
+    monkeypatch.setattr(fr, "fused_raymarch_plain", boom)
+    monkeypatch.setattr(fr, "ipe_gaussians", boom)
+    m = _model(VANILLA, 4, cuda)
+    o, d, nr, z = _rays(64, 32, 1, cuda)
+    pos_b, dir_b = vanilla_encoders()
+    for contract in (False, True):
+        before = dict(fr.fused_raymarch.route_launches)
+        out = fr.fused_raymarch(m, o, d, z, nr, positional_encoding(d, dir_b), pos_b,
+                                ipe_radii=_radii(64, 2, cuda),
+                                scene_contraction=contract)
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(x).all() for x in out)
+        after = fr.fused_raymarch.route_launches
+        assert after["ipe"] == before["ipe"] + 1
+        assert after["freq"] == before["freq"]
+        assert after["contract"] == before["contract"] + int(contract)
+    tile = make_tile_renderer(EvalHyper(model=VANILLA, nc_eval=8, nf_eval=8,
+                                        ipe=True, use_kernel=True),
+                              pos_b, dir_b, device=cuda)
+    K = np.array([[8.0, 0, 4], [0, 8.0, 4], [0, 0, 1]], np.float32)
+    out = render_pose(tile, m, m, np.eye(4, dtype=np.float32), 8, 8, K, device=cuda)
+    assert np.isfinite(out["rgb"]).all()
+
+
+@pytest.mark.parametrize("mode", pp.MODES)
+def test_k5_matches_plain(cuda, mode):
+    rng = np.random.default_rng(3)
+    ragged = ("ragged", rng.normal(size=(37, 21)).astype(np.float32),
+              rng.normal(size=(21, 45)).astype(np.float32))
+    for name, a, b in pp.probe_inputs() + [ragged]:
+        a, b = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+        before = pp.precision_dot.launches
+        got = pp.precision_dot(a, b, mode)
+        torch.cuda.synchronize()
+        assert pp.precision_dot.launches == before + 1
+        want = pp.precision_dot_plain(a, b, mode)
+        tol = a.shape[1] * 2.0 ** -23 * (a.double().abs() @ b.double().abs())
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert bool(((got.double() - want).abs() <= tol).all()), (name, mode)

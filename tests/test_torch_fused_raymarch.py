@@ -1,7 +1,8 @@
 """K2's plain PyTorch version (``ops/fused_raymarch.py``) against the JAX
 fused ray-march (Pallas, interpret mode) and the JAX eval forward pass in
 bf16, on the CPU: the frequency encoder at the vanilla 8x256 widths, with and
-without the contraction (K2c), and the k-planes encoder (K3; static, hybrid
+without the contraction (K2c), its integrated form (K4, mip-NeRF IPE, with
+and without the contraction), and the k-planes encoder (K3; static, hybrid
 with contraction, and 4-D at a fixed time) at the JAX tests' widths (planes
 (8, 16) x 4, lines 32 x 8, aabb 2.0, a 4x128 MLP skip 2). The CUDA kernel is
 held against this plain version on the card (``tests/test_torch_cuda.py``,
@@ -34,7 +35,8 @@ from nerf_sandbox_tpu.models import kplanes as jk
 from nerf_sandbox_tpu.models import mlp as jmlp
 from nerf_sandbox_tpu.models.forward import nerf_forward_pass as jforward
 from nerf_sandbox_tpu.ops.fused_raymarch import fused_raymarch as jfused
-from nerf_sandbox_tpu_torch.core.encoding import positional_encoding, scene_contract
+from nerf_sandbox_tpu_torch.core.encoding import (
+    integrated_positional_encoding, positional_encoding, scene_contract)
 from nerf_sandbox_tpu_torch.models import kplanes as tk
 from nerf_sandbox_tpu_torch.models import mlp as tmlp
 from nerf_sandbox_tpu_torch.ops import fused_mlp as tfm
@@ -76,15 +78,19 @@ def _port(m, o, d, norms, z, **kw):
     return [x.numpy() for x in out]
 
 
-def _last_logit_margin(m, o, d, norms, z, contract=False, kp=None):
+def _last_logit_margin(m, o, d, norms, z, contract=False, kp=None, radii=None):
     """Smallest |sigma logit| of the rays' last samples, through the plain
-    versions of the encode and K1."""
+    versions of the encode (K4's with ``radii``) and K1."""
     pos_b, dir_b = vanilla_encoders()
     t = torch.from_numpy
     pts = t(o) + t(d) * (t(z[:, -1:]) * t(norms[:, None]))
     if contract:
         pts = scene_contract(pts)
-    if kp is None:
+    if radii is not None:
+        mean, var = tfr.ipe_gaussians(t(o), t(d), t(z) * t(norms[:, None]),
+                                      t(radii), contract)
+        enc = integrated_positional_encoding(mean[:, -1], var[:, -1], pos_b)
+    elif kp is None:
         enc = positional_encoding(pts, pos_b)
     else:
         enc = tke.kplanes_encode_plain(kp, pts, 128)[:, :kp.cfg.out_dim]
@@ -96,15 +102,20 @@ def _last_logit_margin(m, o, d, norms, z, contract=False, kp=None):
 def _jax_oracles(params, o, d, norms, z, **kw):
     pos_b, dir_b = vanilla_encoders()
     enc_dir = jpe(jnp.asarray(d), jnp.asarray(dir_b))
+    radii = kw.get("ipe_radii")
+    radii = None if radii is None else jnp.asarray(radii)
+    kw = {k: v for k, v in kw.items() if k != "ipe_radii"}
     fused = jfused(params, JCFG, jnp.asarray(o), jnp.asarray(d), jnp.asarray(z),
-                   jnp.asarray(norms), enc_dir, pos_b, interpret=True, **kw)
+                   jnp.asarray(norms), enc_dir, pos_b, interpret=True,
+                   ipe_radii=radii, **kw)
     fwd = jforward(params, JCFG, jnp.asarray(o), jnp.asarray(d), jnp.asarray(z),
                    pos_bands=jnp.asarray(pos_b), dir_bands=jnp.asarray(dir_b),
                    white_bkgd=kw.get("white_bkgd", True),
                    ray_norms=jnp.asarray(norms), viewdirs_world_unit=jnp.asarray(d),
                    sigma_activation=kw.get("sigma_activation", "relu"),
                    infinite_last_bin=kw.get("infinite_last_bin", True),
-                   compute_dtype=jnp.bfloat16)
+                   scene_contraction=kw.get("scene_contraction", False),
+                   ipe=radii is not None, radii=radii, compute_dtype=jnp.bfloat16)
     return fused, fwd
 
 
@@ -165,11 +176,50 @@ def test_deltas_and_fixup():
     np.testing.assert_allclose(depth.numpy(), [[4.0]], rtol=1e-6)
 
 
-def test_unported_branches_raise():
+@pytest.mark.parametrize("contract", [False, True], ids=["lift", "contracted"])
+def test_ipe_matches_jax(contract):
+    """K4: the plain IPE encode at b=37, n=21 (the kernel's ray and sample
+    padding) with cone radii from 5e-4 (a pinhole's) to 3e-2 (which drives
+    the top bands' attenuation to ~0), lifted or pushed through the
+    contraction (rays out to radius ~7, so both of its branches run), against
+    JAX ``fused_raymarch(ipe_radii=)`` and ``nerf_forward_pass(ipe=True)``
+    (JAX tests/test_fused_raymarch.py:274-315)."""
+    params, m = _model(5 + contract)
+    o, d, norms, z = _rays(b=37, n=21, seed=11 + 2 * contract)
+    radii = np.random.RandomState(12 + contract).uniform(5e-4, 3e-2, 37).astype(
+        np.float32)
+    assert _last_logit_margin(m, o, d, norms, z, contract, radii=radii) > KINK_MARGIN
+    kw = dict(ipe_radii=radii, scene_contraction=contract)
+    got = _port(m, o, d, norms, z, **kw)
+    fused, fwd = _jax_oracles(params, o, d, norms, z, **kw)
+    _assert_close(got, fused, "vs JAX fused_raymarch")
+    _assert_close(got, fwd, "vs JAX nerf_forward_pass(ipe, bf16)")
+    # the encode changes the result (a silently ignored radius would not),
+    # and (B, 1) radii are the same as (B,)
+    point = _port(m, o, d, norms, z, scene_contraction=contract)
+    assert np.abs(got[0] - point[0]).max() > 1e-3
+    col = _port(m, o, d, norms, z, ipe_radii=radii[:, None],
+                scene_contraction=contract)
+    for g, c in zip(got, col):
+        np.testing.assert_array_equal(g, c)
+
+
+def test_ipe_bad_inputs_raise():
+    """IPE takes the frequency encoder only, one radius per ray and at least
+    two samples per ray (its intervals)."""
     _, m = _model(0)
     o, d, norms, z = _rays(b=4, n=8)
-    with pytest.raises(NotImplementedError, match="K4"):
-        _port(m, o, d, norms, z, ipe_radii=np.ones(4))
+    with pytest.raises(ValueError, match="ipe_radii must be"):
+        _port(m, o, d, norms, z, ipe_radii=np.ones(5))
+    with pytest.raises(ValueError, match="two samples"):
+        _port(m, o, d, norms, z[:, :1], ipe_radii=np.ones(4))
+    _, _, _, km = _kp_model(0, 0, 0)
+    t = torch.from_numpy
+    with pytest.raises(ValueError, match="frequency encoder only"):
+        tfr.fused_raymarch(km, t(o), t(d), t(z), t(norms),
+                           positional_encoding(t(d), vanilla_encoders()[1]), None,
+                           kp_params=km.pos_grid, kp_cfg=km.pos_grid.cfg,
+                           ipe_radii=np.ones(4), device="cpu")
 
 
 def test_freq_contraction_matches_jax():
@@ -180,15 +230,8 @@ def test_freq_contraction_matches_jax():
     rays = _rays(b=37, n=21, seed=9)
     assert _last_logit_margin(m, *rays, contract=True) > KINK_MARGIN
     got = _port(m, *rays, scene_contraction=True)
-    fused, _ = _jax_oracles(params, *rays, scene_contraction=True)
+    fused, fwd = _jax_oracles(params, *rays, scene_contraction=True)
     _assert_close(got, fused, "vs JAX fused_raymarch")
-    pos_b, dir_b = vanilla_encoders()
-    fwd = jforward(params, JCFG, *map(jnp.asarray, (rays[0], rays[1], rays[3])),
-                   pos_bands=jnp.asarray(pos_b), dir_bands=jnp.asarray(dir_b),
-                   white_bkgd=True, ray_norms=jnp.asarray(rays[2]),
-                   viewdirs_world_unit=jnp.asarray(rays[1]),
-                   infinite_last_bin=True, scene_contraction=True,
-                   compute_dtype=jnp.bfloat16)
     _assert_close(got, fwd, "vs JAX nerf_forward_pass(bf16)")
     # the warp changes the result (a silently ignored flag would not)
     off = _port(m, *rays)

@@ -6,7 +6,7 @@ Tolerances: fp32 forward 1e-4 absolute against ``nerf_apply`` (summation
 order over 8 layers of 256); bf16 forward 0.05 (the JAX fused-MLP test's
 bf16 bound: both sides round every product to bf16, at places that can
 differ by accumulation order); weight carry-over and checkpoint reading
-exact.
+exact; an IPE-trained checkpoint's fp32 render 1e-4 (depth 1e-3).
 """
 
 import math
@@ -21,11 +21,13 @@ import torch
 from nerf_sandbox_tpu.core.encoding import vanilla_encoders
 from nerf_sandbox_tpu.models import mlp as jmlp
 from nerf_sandbox_tpu.models.forward import nerf_forward_pass as jfwd
+from nerf_sandbox_tpu.render import renderer as jr
 from nerf_sandbox_tpu.train.checkpoints import save_checkpoint
 from nerf_sandbox_tpu.train.step import TrainState
 from nerf_sandbox_tpu_torch.core.encoding import positional_encoding
 from nerf_sandbox_tpu_torch.models import mlp as tmlp
 from nerf_sandbox_tpu_torch.models.forward import nerf_forward_pass as tfwd
+from nerf_sandbox_tpu_torch.render import renderer as tr
 from nerf_sandbox_tpu_torch.train import checkpoints as tckpt
 
 JCFG = jmlp.NeRFConfig(enc_pos_dim=63, enc_dir_dim=27)
@@ -236,3 +238,34 @@ def test_load_params_from_jax_ckpt(tmp_path):
     assert step == 42 and cfg["lr"] == 5e-4
     assert tckpt.step_of_path(path) == 42
     assert tckpt.peek_checkpoint_meta(tmp_path / "nothing") is None
+
+
+def test_ipe_checkpoint_renders_in_the_port(tmp_path):
+    """IPE adds no parameters and keeps the frequency encoder's 63 columns,
+    so a checkpoint of an IPE-trained JAX run loads through the reader and
+    renders, with ``EvalHyper(ipe=True)``, the JAX renderer's numbers."""
+    pc = jmlp.init_nerf_params(jax.random.PRNGKey(4), SMALL_J)
+    pf = jmlp.init_nerf_params(jax.random.PRNGKey(5), SMALL_J)
+    state = TrainState(step=jnp.int32(7), params_c=pc, params_f=pf,
+                       opt_state=None)
+    path = save_checkpoint(tmp_path / "checkpoints", 7, state,
+                           {"ipe": True, "vanilla": True}, include_optim=False)
+    sd_c, _ = tckpt.load_params_from_jax_ckpt(path)
+    assert tckpt.peek_checkpoint_meta(tmp_path)[1]["ipe"] is True
+    model_c = tmlp.NeRFMLP(SMALL_T, device="cpu")
+    model_c.load_state_dict(sd_c)
+    pos_b, dir_b = vanilla_encoders()
+    K = np.array([[10.0, 0, 4], [0, 10.0, 4], [0, 0, 1]], np.float32)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = 4.0
+    hyper = dict(nc_eval=8, nf_eval=0, ipe=True, compute_dtype="float32")
+    jtile = jr.make_tile_renderer(jr.EvalHyper(model=SMALL_J, **hyper),
+                                  jnp.asarray(pos_b), jnp.asarray(dir_b))
+    want = jr.render_pose(jtile, pc, None, c2w, 8, 8, K, eval_chunk=32)
+    ttile = tr.make_tile_renderer(tr.EvalHyper(model=SMALL_T, **hyper), pos_b,
+                                  dir_b, device="cpu")
+    got = tr.render_pose(ttile, model_c, None, c2w, 8, 8, K, eval_chunk=32,
+                         device="cpu")
+    for key, tol in (("rgb", 1e-4), ("acc", 1e-4), ("depth", 1e-3)):
+        np.testing.assert_allclose(got[key], want[key], atol=tol, err_msg=key)
+    assert got["rgb"].std() > 1e-2

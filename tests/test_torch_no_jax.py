@@ -68,6 +68,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from nerf_sandbox_tpu_torch.models.kplanes import KPlanes, KPlanesConfig
     from nerf_sandbox_tpu_torch.ops.kplanes_encode import (
         fused_kplanes_encode, pack_kplanes)
+    from nerf_sandbox_tpu_torch.ops.precision_probe import precision_dot
     from nerf_sandbox_tpu_torch.render.renderer import (
         EvalHyper, make_tile_renderer, render_pose, render_rays_chunked)
 
@@ -85,6 +86,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     model = NeRFMLP(cfg, device="cpu")
     tile = make_tile_renderer(EvalHyper(model=cfg, nc_eval=4, nf_eval=4),
                               pos_b, dir_b, device="cpu")
+    ipe_tile = make_tile_renderer(EvalHyper(model=cfg, nc_eval=4, nf_eval=4,
+                                            ipe=True, use_kernel=True),
+                                  pos_b, dir_b, device="cpu")
     ro = torch.zeros(2, 3)
     rd = torch.tensor([[0.0, 0.0, -1.0]] * 2)
     z = torch.linspace(2, 6, 4).expand(2, 4)
@@ -110,6 +114,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
             kp_hyper, None, dir_b),
         "render_pose(kplanes)": lambda: render_pose(
             kp_tile, kp_model, kp_model, np.eye(4), 2, 2, K),
+        "fused_raymarch(ipe)": lambda: fused_raymarch(
+            model, ro, rd, z, torch.ones(2), torch.zeros(2, 27), pos_b,
+            ipe_radii=torch.ones(2)),
+        "render_pose(ipe)": lambda: render_pose(ipe_tile, model, model,
+                                                np.eye(4), 2, 2, K),
+        "precision_dot": lambda: precision_dot(torch.zeros(2, 3),
+                                               torch.zeros(3, 2), "fp32"),
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name, call in calls.items():
@@ -120,6 +131,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert out["rgb"].shape == (2, 2, 3)
     out = render_pose(kp_tile, kp_model, kp_model, np.eye(4), 2, 2, K,
                       device="cpu")
+    assert np.isfinite(out["rgb"]).all()
+    out = render_pose(ipe_tile, model, model, np.eye(4), 2, 2, K, device="cpu")
     assert np.isfinite(out["rgb"]).all()
 
 

@@ -23,6 +23,9 @@ The contracted k-planes-hybrid configuration (the unbounded-360 one: planes
 (8, 16) x 4, lines 32 x 8, hybrid 3, aabb 2.0, ``scene_contraction``,
 ``lindisp``, near 0.125 / far 22.5, an orbit at radius 1) is held the same
 way, and a 4-D grid through ``render_pose(time=...)`` with a finite last bin.
+So is mip-NeRF's integrated positional encoding (``ipe``, the pixel-cone
+radii from ``render_pose``), with the kink margin taken on the last
+sample's frustum Gaussian of each pass.
 """
 
 import jax
@@ -35,11 +38,17 @@ from nerf_sandbox_tpu.core.encoding import vanilla_encoders
 from nerf_sandbox_tpu.models import kplanes as jk
 from nerf_sandbox_tpu.models import mlp as jmlp
 from nerf_sandbox_tpu.render import renderer as jr
-from nerf_sandbox_tpu_torch.core.encoding import positional_encoding, scene_contract
+from nerf_sandbox_tpu_torch.core.encoding import (
+    integrated_positional_encoding, pixel_cone_radii, positional_encoding,
+    scene_contract)
 from nerf_sandbox_tpu_torch.core.rays import get_camera_rays_grid
+from nerf_sandbox_tpu_torch.core.sampling import (
+    merge_z_samples, resample_midpoints, stratified_samples)
+from nerf_sandbox_tpu_torch.models.forward import nerf_forward_pass as tfwd
 from nerf_sandbox_tpu_torch.models import kplanes as tk
 from nerf_sandbox_tpu_torch.models import mlp as tmlp
 from nerf_sandbox_tpu_torch.ops import fused_mlp as tfm
+from nerf_sandbox_tpu_torch.ops import fused_raymarch as tfr
 from nerf_sandbox_tpu_torch.ops import kplanes_encode as tke
 from nerf_sandbox_tpu_torch.render import renderer as tr
 
@@ -190,12 +199,15 @@ def test_perturbed_render_is_seeded():
     ({"sampling_mode": "occupancy"}, "P7 item 3"),
     ({"sampling_mode": "proposal"}, "P7 item 4"),
     ({"pos_encoder": "hashgrid"}, "P7 item 8"),
-    ({"ipe": True}, "K4"),
+    ({"ipe": True, "pos_encoder": "kplanes"}, "IPE applies to the freq encoder"),
     ({"dir_encoder": "sh"}, "P7 item 6"),
 ])
 def test_unported_modes_raise(kw, match):
+    """Unported modes raise NotImplementedError naming their queue item;
+    IPE with another encoder than ``freq`` is refused (ValueError)."""
     pos_b, dir_b = vanilla_encoders()
-    with pytest.raises(NotImplementedError, match=match):
+    exc = ValueError if kw.get("ipe") else NotImplementedError
+    with pytest.raises(exc, match=match):
         tr.make_tile_renderer(tr.EvalHyper(model=TCFG, **kw), pos_b, dir_b,
                               device="cpu")
 
@@ -347,3 +359,86 @@ def test_kplanes_hyper_is_checked():
         with pytest.raises(ValueError, match="enc_cfg|out_dim"):
             tr.make_tile_renderer(tr.EvalHyper(model=cfg, pos_encoder="kplanes",
                                                **kw), None, dir_b, device="cpu")
+
+
+def _ipe_last_logit_margin(models, c2w, nf_eval):
+    """Smallest |sigma logit| of the last sample of each pass, over all
+    pixels, encoded as that sample's frustum Gaussian: the coarse pass's
+    uniform z, and the fine pass's merged z from the port's fp32 coarse
+    pass; the MLP in fp32 and in bf16."""
+    pos_b, dir_b = vanilla_encoders()
+    rays = get_camera_rays_grid(torch.from_numpy(KMAT), torch.from_numpy(c2w),
+                                image_h=H, image_w=W, pixel_center=True)
+    ro, rd, rn = rays.o_march, rays.d_march_unit, rays.d_march_norm
+    radii = pixel_cone_radii(torch.tensor(KMAT[0, 0]), rays.d_world_norm[..., 0])
+    enc_d = positional_encoding(rays.d_world_unit, dir_b)
+    (_, mc), (_, mf) = models
+    zs = [stratified_samples(2.0, 6.0, 8).expand(H * W, 8)]
+    with torch.no_grad():
+        if nf_eval:
+            _, w, _, _ = tfwd(mc, ro, rd, zs[0], pos_bands=pos_b, dir_bands=dir_b,
+                              white_bkgd=True, ray_norms=rn,
+                              viewdirs_world_unit=rays.d_world_unit,
+                              infinite_last_bin=True, ipe=True, radii=radii,
+                              device="cpu")
+            zs.append(merge_z_samples(zs[0], resample_midpoints(
+                zs[0], w, nf_eval, deterministic=True)))
+        out = []
+        for m, z in zip((mc, mf), zs):
+            mean, var = tfr.ipe_gaussians(ro, rd, z * rn, radii, False)
+            enc = integrated_positional_encoding(mean[:, -1], var[:, -1], pos_b)
+            out += [float(m(enc, enc_d, compute_dtype=dt)[:, 3].abs().min())
+                    for dt in (None, torch.bfloat16)]
+    return min(out)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("path", KP_PATHS)
+def test_ipe_render_pose_matches_jax(path, case):
+    """mip-NeRF IPE through ``render_pose``: the plain fp32 path against JAX
+    ``use_pallas=False`` and the kernel twin (K4's plain version) against
+    JAX ``use_pallas`` in interpret mode, raw-init coarse-only and on the
+    smooth field with the fine pass."""
+    c = CASES[case]
+    jax_kw, port_kw, tols = KP_PATHS[path]
+    models = _models(**c["models"])
+    c2w = _pose(c["th"])
+    assert _ipe_last_logit_margin(models, c2w, c["nf_eval"]) > KINK_MARGIN
+    got, want = _render_both(models, c2w, nf_eval=c["nf_eval"],
+                             jax_kw=dict(ipe=True, **jax_kw),
+                             port_kw=dict(ipe=True, **port_kw))
+    for key, tol in zip(("rgb", "acc", "depth"), tols):
+        np.testing.assert_allclose(got[key], want[key], atol=tol, err_msg=key)
+    assert got["rgb"].std() > 1e-2
+
+
+def test_ipe_fine_frac_culling_matches_jax():
+    """``eval_fine_frac`` with IPE: the refined rays take their own radii
+    (``radii[top]``), as in the JAX renderer."""
+    models = _models(scale_sigma=0.5, shift_sigma=-1.0)
+    kw = dict(compute_dtype="float32", eval_fine_frac=0.5, ipe=True,
+              sigma_activation="softplus", infinite_last_bin=False)
+    got, want = _render_both(models, _pose(0.9), jax_kw=kw, port_kw=kw,
+                             nf_eval=8)
+    for key, tol in (("rgb", 1e-4), ("acc", 1e-4), ("depth", 1e-3)):
+        np.testing.assert_allclose(got[key], want[key], atol=tol, err_msg=key)
+    # the encode is live on this path: without IPE the frame differs
+    radii_free, _ = _render_both(models, _pose(0.9), jax_kw=kw,
+                                 port_kw={**kw, "ipe": False}, nf_eval=8)
+    assert np.abs(radii_free["rgb"] - got["rgb"]).max() > 1e-3
+
+
+def test_ipe_needs_radii_and_no_ndc():
+    (_, mc), (_, mf) = _models()
+    pos_b, dir_b = vanilla_encoders()
+    tile = tr.make_tile_renderer(tr.EvalHyper(model=TCFG, nc_eval=4, nf_eval=4,
+                                              ipe=True), pos_b, dir_b, device="cpu")
+    with pytest.raises(ValueError, match="NDC"):
+        tr.render_pose(tile, mc, mf, _pose(), 2, 2, KMAT, use_ndc=True,
+                       device="cpu")
+    ro = torch.zeros(2, 3)
+    rd = torch.tensor([[0.0, 0.0, -1.0]] * 2)
+    with pytest.raises(ValueError, match="radii"):
+        tile(mc, mf, ro, rd, torch.ones(2, 1), rd)
+    out = tile(mc, mf, ro, rd, torch.ones(2, 1), rd, radii=torch.full((2,), 1e-3))
+    assert all(torch.isfinite(x).all() for x in out)
