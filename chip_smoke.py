@@ -19,11 +19,16 @@ Phases (any failure exits non-zero):
    ``nvcc`` (one process per source, in parallel);
 3. K1 (fused MLP) against its plain PyTorch version at 16384x64 rows with the
    reference's 8x256 weights (``tests/golden/mlp_state.npz``), max |diff|
-   <= 0.05, timed with CUDA events (median of 10 after warm-up);
+   <= 0.05, timed with CUDA events (median of 10 after warm-up); beside it,
+   as a yardstick the port never calls, the same MLP as a chain of bf16
+   cuBLAS calls layer by layer;
 4. K2 (fused ray-march) against its plain version on one real eval tile
    (16384 rays x 192 merged samples of frame 1): comp, w, acc 2e-2 and depth
    0.1; early ray termination (eps 1e-4) against none within 1e-3, on the
-   reference weights and on a dense variant where ERT fires; timed;
+   reference weights and on a dense variant where ERT fires; timed. For K1
+   and every K2 tile timed here and in 4b / 4c a line gives the rows per
+   weight fetch, the weight bytes the call pulls from L2 with the rate that
+   implies, and the share of the bound;
 4b. the 360 configuration with seeded weights, on one real fine tile of its
    frame 1 (16384 x 192): K2 with K2c + K3 against its plain version at
    phase 4's tolerances; K3's encode-only entry on the same (contracted)
@@ -41,7 +46,9 @@ Phases (any failure exits non-zero):
    ``nerf_forward_pass(use_kernel=True)`` over a fine tile through K1, with
    the launch counters zeroed just before and read just after; frames must
    be finite and in [0, 1], and frame 1 rendered through the plain path
-   (``use_kernel=False``) must agree within 2e-2 and at >= 40 dB PSNR;
+   (``use_kernel=False``) must agree within 2e-2 and at >= 40 dB PSNR; then
+   one more frame under ``torch.profiler``: device time by kernel and the
+   device's idle share (or "not measured" if the trace holds no CUDA time);
 5b. the same for the 360 configuration: two 800x800 orbit poses at radius 1
    through K2's k-planes + contraction instantiation (80 launches a frame),
    and one k-planes ``nerf_forward_pass(use_kernel=True)`` through K3's
@@ -149,6 +156,86 @@ def bound(flops, nbytes, fp32_flops=0.0):
     t_ops = max(flops / H100_BF16_FLOPS, fp32_flops / H100_FP32_FLOPS) * 1e3
     t_bytes = nbytes / H100_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def mlp_passes(B, N):
+    """MLP passes of K2 over B rays x N samples (no ERT): each pass is one
+    weight fetch for 32 rays x 4 samples."""
+    from nerf_sandbox_tpu_torch.ops import fused_raymarch as fr
+    return -(-B // fr.RAYS_PER_GROUP) * -(-N // fr.SAMPLES_PER_PASS)
+
+
+def fetch_line(tag, ms, bound_ms, passes, packed, card):
+    """Rows per weight fetch, the weight bytes a call pulls from L2 (the
+    staged stream once per pass) and the rate that implies, the share of the
+    bound."""
+    from nerf_sandbox_tpu_torch.ops import fused_mlp as fm
+    nbytes = passes * packed.staged.numel() * 2
+    print(f"[{tag}] {fm.TILE_M} rows per weight fetch, {passes} fetches of "
+          f"{packed.staged.numel() * 2 / 1e6:.3f} MB: {nbytes / 1e9:.3f} GB of "
+          f"weights from L2 in {ms:.3f} ms = {nbytes / ms / 1e9:.3f} TB/s; "
+          f"{100.0 * bound_ms / ms:.1f}% of the {bound_ms:.3f} ms bound | {card}",
+          flush=True)
+
+
+def mlp_chain_bf16(torch, packed, ep, ed):
+    """The same MLP as a chain of bf16 cuBLAS calls (addmm / mv) layer by
+    layer, a yardstick for K1 that the port never calls. ep, ed: bf16 rows
+    padded to the kernel widths."""
+    v, cfg = packed.views, packed.cfg
+    H = cfg.hidden_dim
+    relu = torch.relu_
+    h = relu(torch.addmm(v["b0"], ep, v["w0"]))
+    mid = 0
+    for layer in range(1, cfg.n_layers):
+        if layer == cfg.skip_pos:
+            h = relu(torch.addmm(torch.addmm(v["bskip"], h, v["wskip_h"]), ep,
+                                 v["wskip_e"]))
+        else:
+            h = relu(torch.addmm(v["b_mid"][mid], h, v["w_mid"][mid]))
+            mid += 1
+    sigma = torch.mv(h, v["w_sig"]) + v["b_sig"]
+    feat = torch.addmm(v["b_feat"], h, v["w_feat"])
+    ch = relu(torch.addmm(torch.addmm(v["bc1"], feat, v["wc1"][:H]), ed,
+                          v["wc1"][H:]))
+    rgb = torch.addmm(v["bc2"], ch, v["wc2t"].T)
+    return torch.cat([rgb, sigma[:, None]], dim=-1)
+
+
+def profile_frame(torch, render, tag, card):
+    """One frame under torch.profiler: device time by kernel and the
+    device's idle share of the frame's wall time. → (seconds in the fused
+    ray-march kernels, profiled wall seconds), or None when the trace holds
+    no CUDA time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        print(f"[{tag}] torch.profiler: device time by kernel: not measured (the "
+              f"trace shows no CUDA time); idle share: not measured", flush=True)
+        return None
+    by_name = {}
+    for e in dev_events:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.end - e.time_range.start)
+    busy = sum(us for _, us in by_name.values()) / 1e6
+    span = (max(e.time_range.end for e in dev_events)
+            - min(e.time_range.start for e in dev_events)) / 1e6
+    print(f"[{tag}] torch.profiler over one frame: wall {wall:.3f} s (profiled), "
+          f"device busy {busy:.3f} s, idle share {100.0 * (1.0 - busy / wall):.1f}% "
+          f"of the wall time ({100.0 * (1.0 - busy / span):.1f}% between the first "
+          f"and the last kernel) | {card}", flush=True)
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"[{tag}]   {us / 1e3:10.3f} ms {100.0 * us / 1e6 / wall:5.1f}% "
+              f"x{n:<5d} {name[:90]}", flush=True)
+    k2 = sum(us for name, (_, us) in by_name.items() if "fused_raymarch" in name)
+    return k2 / 1e6, wall
 
 
 def kplanes_fp32_flops(kcfg):
@@ -427,6 +514,9 @@ def phase_360_tile(torch, dev, card, packed_freq, kernels):
           f"{kp_coarse_ms:.3f} ms, bound {b_coarse[0]:.3f} ms; K3t (4-D fold) "
           f"fine tile {tfold_ms:.3f} ms, plain {tfold_plain_ms:.3f} ms | {card}",
           flush=True)
+    fetch_line("K2c+K3 fine", kp_ms, b_kp[0], mlp_passes(B, N), mlp_f, card)
+    fetch_line("K2c+K3 coarse", kp_coarse_ms, b_coarse[0], mlp_passes(B, 64), mlp_f,
+               card)
     print(f"[K2c] same tile, frequency model: with contraction {c_ms:.3f} ms, "
           f"without {freq_ms:.3f} ms, plain {c_plain_ms:.3f} ms, bound "
           f"{b_c[0]:.3f} ms ({b_c[1]})", flush=True)
@@ -695,6 +785,10 @@ def phase_ipe_tile(torch, dev, card, packed_f, packed_d, t4, ctx360, kernels):
           f"{ipe_plain_ms:.3f} ms, bound {b_ipe[0]:.3f} ms ({b_ipe[1]}); coarse "
           f"tile {B}x{zc.shape[1]} IPE kernel {ipe_coarse_ms:.3f} ms | {card}",
           flush=True)
+    fetch_line("K4 fine", ipe_ms, b_ipe[0], mlp_passes(B, N), packed_f, card)
+    fetch_line("K4 coarse", ipe_coarse_ms, bound(2.0 * mlp_macs_per_row(packed_f.cfg)
+                                                 * B * zc.shape[1], 0.0)[0],
+               mlp_passes(B, zc.shape[1]), packed_f, card)
     print(f"[K4c] 360 fine tile with contraction: kernel {ipe_c_ms:.3f} ms, "
           f"plain {ipe_c_plain_ms:.3f} ms", flush=True)
     kernels["fused_raymarch_ipe"] = dict(
@@ -956,6 +1050,16 @@ def run(torch, root):
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
     print(f"[K1] Q={Q} max|diff|={err:.3g} (tol 0.05) kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+    fetch_line("K1", ms, b_ms, -(-Q // fm.TILE_M), packed_f, card)
+    ep_pad = fm.pad_cols_bf16(ep, 64)
+    ed_pad = fm.pad_cols_bf16(ed, 32)
+    chain = mlp_chain_bf16(torch, packed_f, ep_pad, ed_pad)
+    chain_err = max_diff(chain.float(), want)
+    chain_ms = cuda_ms(torch, lambda: mlp_chain_bf16(torch, packed_f, ep_pad, ed_pad))
+    print(f"[K1] yardstick, not used by the port: the same MLP as a chain of bf16 "
+          f"cuBLAS calls layer by layer (addmm / mv, bf16 between layers) "
+          f"{chain_ms:.3f} ms at Q={Q} (max|diff| vs plain {chain_err:.3g}); K1 "
+          f"{ms:.3f} ms = {chain_ms / ms:.2f}x faster | {card}", flush=True)
 
     # ---- 4. K2 against its plain version, on a real eval tile ----
     pos_bands, dir_bands = vanilla_encoders()
@@ -1039,6 +1143,10 @@ def run(torch, root):
     print(f"[K2] fine tile kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); coarse "
           f"tile {B}x{zc.shape[1]} kernel {coarse_ms:.3f} ms", flush=True)
+    b_coarse_ms = bound(2.0 * macs * B * zc.shape[1], 0.0)[0]
+    fetch_line("K2 fine", ms, b_ms, mlp_passes(B, N), packed_f, card)
+    fetch_line("K2 coarse", coarse_ms, b_coarse_ms, mlp_passes(B, zc.shape[1]),
+               packed_f, card)
 
     # ---- 4b. the 360 configuration: K2c, K3 and K3t on one fine tile ----
     ctx360 = phase_360_tile(torch, dev, card, packed_f, kernels)
@@ -1131,6 +1239,14 @@ def run(torch, root):
           f"frame 1: {int(kink.sum())} pixels at the last-bin kink")
     check(d_rgb <= 2e-2, f"frame 1 kernel vs plain max |drgb| {d_rgb} > 2e-2")
     check(psnr >= 40.0, f"frame 1 kernel vs plain PSNR {psnr:.2f} dB < 40")
+    # one more frame under the profiler (after the counts were read)
+    traced = profile_frame(torch, lambda: render_pose(
+        tile_k, model_c, model_f, blender_pose(1), IMG, IMG, Kmat,
+        eval_chunk=EVAL_CHUNK, device=dev), "slice profile", card)
+    if traced is not None:
+        print(f"[slice profile] K2 in the trace: {traced[0]:.3f} s of the profiled "
+              f"{traced[1]:.3f} s frame ({100.0 * traced[0] / traced[1]:.1f}%)",
+              flush=True)
 
     # ---- 5b. the 360 slice: render_pose through K2c + K3 ----
     launches_360 = phase_360_slice(torch, dev, card, ctx360)

@@ -1,65 +1,94 @@
 // K1: the whole NeRF MLP fused into one kernel, raw [r, g, b, sigma] logits.
 //
 // Replaces the TPU kernel nerf_sandbox_tpu/ops/fused_mlp.py:fused_nerf_apply
-// (body _kernel, pl.pallas_call at :188). One block of 128 threads per tile of
-// 64 sample rows: it stages the tile's bf16 encodings in shared memory (zero
-// padding 63->64 and 27->32 columns and the ragged last tile), runs the MLP
-// of mlp_tile.cuh, and writes only the 4 real output columns (the TPU's
-// 128-lane output padding is gone). Tensor-core bound; see mlp_tile.cuh.
+// (body _kernel, pl.pallas_call at :188). Bound on the H100: the tensor cores,
+// 1.19 MFLOP of bf16 work per row at the vanilla widths against ~190 bytes of
+// HBM traffic (1.258 ms at 2^20 rows).
+//
+// Design: mlp_tile.cuh's block of two consumer warpgroups and one producer
+// warp, one persistent block per SM walking tiles of TILE_M = 128 rows (R =
+// 128 rows per weight fetch from L2, through a ring of up to 8 stages). Each
+// consumer warpgroup stages its 64 rows' bf16 encodings in shared memory in
+// wgmma's swizzled layout (zero padding 63->64 and 27->64 columns and the
+// ragged last tile), runs the MLP with the activations in registers, and
+// writes only the 4 real output columns (the TPU's 128-lane output padding is
+// gone).
 #include "mlp_tile.cuh"
 
 using namespace nerf;
 
-__global__ void __launch_bounds__(N_THREADS)
+template <int H>
+__global__ void __launch_bounds__(N_THREADS, 1)
 fused_mlp_kernel(const bf16* __restrict__ enc_pos,
                  const bf16* __restrict__ enc_dir, int Q, int P_dim, int D_dim,
-                 MlpArgs P, float* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const MlpSmemLayout L(P.H, P.EP, P.ED);
-  const MlpSmem S = carve(smem, L);
-  const int row0 = blockIdx.x * TILE_M, tid = threadIdx.x;
-  const int lde = P.EP + ROW_PAD, ldd = P.ED + ROW_PAD;
+                 const MlpArgs P, float* __restrict__ out) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  mlp_setup(smem, P);
+  const int wg = warpgroup(), t = threadIdx.x % WG_THREADS;
+  if (wg == N_CONSUMERS) {
+    mlp_produce(smem, P);
+    return;
+  }
+  consumer_regs();
+  const MlpSmem S = mlp_carve(smem, P);
   const bf16 zero = __float2bfloat16(0.0f);
-
-  for (int i = tid; i < TILE_M * P.EP; i += N_THREADS) {
-    const int q = i / P.EP, c = i % P.EP, r = row0 + q;
-    S.enc[q * lde + c] =
-        (r < Q && c < P_dim) ? enc_pos[size_t(r) * P_dim + c] : zero;
+  bf16* enc = S.enc[wg];
+  bf16* ed = S.ed[wg];
+  const float* res = S.out[wg];
+  Pipe pipe(S, P);
+  const int n_tiles = (Q + TILE_M - 1) / TILE_M;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * TILE_M + wg * WG_ROWS;
+    wg_sync(wg);   // the last pass's reads of enc, ed and out are done
+    for (int i = t; i < WG_ROWS * P.EP; i += WG_THREADS) {
+      const int q = i / P.EP, c = i % P.EP, r = row0 + q;
+      enc[swz(q, c)] = (r < Q && c < P_dim) ? enc_pos[size_t(r) * P_dim + c] : zero;
+    }
+    for (int i = t; i < WG_ROWS * P.EDP; i += WG_THREADS) {
+      const int q = i / P.EDP, c = i % P.EDP, r = row0 + q;
+      ed[swz(q, c)] = (r < Q && c < D_dim) ? enc_dir[size_t(r) * D_dim + c] : zero;
+    }
+    fence_async_smem();
+    wg_sync(wg);
+    mlp_pass<H>(P, S, wg, pipe);
+    wg_sync(wg);
+    for (int i = t; i < WG_ROWS * 4; i += WG_THREADS) {
+      const int r = row0 + (i >> 2);
+      if (r < Q) out[size_t(r) * 4 + (i & 3)] = res[i];
+    }
   }
-  for (int i = tid; i < TILE_M * P.ED; i += N_THREADS) {
-    const int q = i / P.ED, c = i % P.ED, r = row0 + q;
-    S.ed[q * ldd + c] =
-        (r < Q && c < D_dim) ? enc_dir[size_t(r) * D_dim + c] : zero;
-  }
-  __syncthreads();
+  mlp_drain(S, pipe);
+}
 
-  mlp_tile(P, S);
-
-  for (int i = tid; i < TILE_M * 4; i += N_THREADS) {
-    const int q = i >> 2, c = i & 3, r = row0 + q;
-    if (r < Q) out[size_t(r) * 4 + c] = c < 3 ? S.rgb[q * 3 + c] : S.sigma[q];
-  }
+template <int H>
+static int launch_mlp(const bf16* ep, const bf16* ed, int Q, int P_dim, int D_dim,
+                      MlpArgs P, float* out, cudaStream_t stream) {
+  const size_t smem = plan_stages(P, 0);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = prepare_kernel(fused_mlp_kernel<H>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (Q == 0) return 0;
+  const int tiles = (Q + TILE_M - 1) / TILE_M;
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  fused_mlp_kernel<H><<<grid, N_THREADS, smem, stream>>>(ep, ed, Q, P_dim, D_dim,
+                                                         P, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int nerf_fused_mlp(const void* enc_pos, const void* enc_dir,
                               const void* wpack, const long long* offsets,
-                              int Q, int P_dim, int D_dim, int H, int EP,
-                              int ED, int n_layers, int skip_pos, void* out,
-                              void* stream) {
+                              const void* staged, int Q, int P_dim, int D_dim,
+                              int H, int EP, int ED, int n_layers, int skip_pos,
+                              void* out, void* stream) {
   if (!mlp_shape_ok(H, EP, ED, n_layers, skip_pos) || P_dim > EP ||
       D_dim > ED || Q < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const MlpArgs P = make_mlp_args(wpack, offsets, H, EP, ED, n_layers, skip_pos);
-  const MlpSmemLayout L(H, EP, ED);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L.total));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (Q == 0) return 0;
-  const dim3 grid((Q + TILE_M - 1) / TILE_M);
-  fused_mlp_kernel<<<grid, N_THREADS, L.total,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(enc_pos), static_cast<const bf16*>(enc_dir), Q,
-      P_dim, D_dim, P, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const MlpArgs P = make_mlp_args(wpack, offsets, staged, H, EP, ED, n_layers,
+                                  skip_pos);
+  const bf16* ep = static_cast<const bf16*>(enc_pos);
+  const bf16* ed = static_cast<const bf16*>(enc_dir);
+  float* o = static_cast<float*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return H == 256 ? launch_mlp<256>(ep, ed, Q, P_dim, D_dim, P, o, st)
+                  : launch_mlp<128>(ep, ed, Q, P_dim, D_dim, P, o, st);
 }

@@ -7,49 +7,68 @@
 // (bodies _kernel and _kernel_chunk_body, pl.pallas_call at :667): its
 // frequency branch, its contraction branch (:406-413), its k-planes branch
 // (_kp_encode_body, kplanes_encode.cuh) and its IPE branch (:432-486, with
-// the wrapper's interval streams :631-648). The encoder and the contraction
-// are template parameters, so each of the six instantiations carries only
-// its own code. What it computes, not its TPU layout:
+// the wrapper's interval streams :631-648). The encoder, the contraction and
+// the hidden width (128 or 256) are template parameters, so each of the
+// twelve instantiations carries only its own code. What it computes, not
+// its TPU layout:
 //  * the TPU carries per-ray state across SEQUENTIAL grid steps; CUDA blocks
-//    run in no order, so one block owns RAYS rays and loops over their
-//    samples itself, SPC samples of each ray per 64-row MLP tile, with
-//    log T, sum w, sum w*z and sum w*rgb in registers of the ray's thread;
-//  * z and dt come in the public (B, N) layout and weights go out (B, N):
+//    run in no order, so a block owns a group of RAYS rays at a time and
+//    loops over their samples itself, SPC samples of each ray per pass of
+//    the MLP, with log T, sum w, sum w*z and sum w*rgb kept for the ray's
+//    thread in shared memory (the registers belong to the MLP);
+//  * z comes in the public (B, N) layout and weights go out (B, N), and each
+//    sample's delta (z[n+1] - z[n]) |d|, the last one 1e10 |d| or 0, is
+//    formed where the point is placed (the wrapper's _deltas, op for op):
 //    no transposed layouts, one-hot relayouts, _dotx limb splits or
 //    triangular-matmul cumsum (Mosaic workarounds);
-//  * encode arguments are elementwise fp32 x*f with the accurate sinf/cosf
+//  * encode arguments are elementwise fp32 x*f with the accurate sincosf
 //    (the build has no fast math: the top band 2^9 puts arguments at
 //    thousands of radians), columns [x, sin(f0 xyz).., cos(f0 xyz)..] padded;
-//  * padded rays of the last block are masked out of the ERT test instead
+//  * padded rays of the last group are masked out of the ERT test instead
 //    of starting at log T = -80;
 //  * K2c warps the points as they are placed, before either encoder, with
-//    the branchless formula of core/encoding.py:scene_contract; z and dt
-//    stay metric.
+//    the branchless formula of core/encoding.py:scene_contract; z and the
+//    deltas stay metric.
 //  * K4 turns each (ray, sample) row into a conical-frustum Gaussian in the
 //    pass that places the points: its interval from the neighbouring z of
 //    the row (the TPU streamed the midpoint and half-width from the host
 //    because a chunk cannot see its neighbours; here the row is in device
 //    memory), the moments, then the mean and the diagonal variance by the
 //    lift or, under contraction, the closed-form Jacobian pushforward. The
-//    mean goes where the point would, the variance into a TILE_M x 3 buffer,
+//    mean goes where the point would, the variance into a 64 x 3 buffer,
 //    and the encode multiplies each sin/cos column by exp(-f^2 var / 2):
 //    per-row fp32 arithmetic in place of the TPU's one-hot relayouts and
 //    (Q,3)x(3,EP) limb-split matmuls.
 //
 // Bound on the H100: the MLP's 1.19 MFLOP per sample against ~10 bytes of
-// HBM traffic per sample, so the tensor cores set the bound (mlp_tile.cuh
-// describes the MLP's design); the encode and composite are per-thread fp32
-// work between the MLP tiles, and ERT removes whole tiles of work.
+// HBM traffic per sample, so the tensor cores set the bound: 3.775 ms for a
+// 16384 x 192 fine tile, 1.258 ms for a 16384 x 64 coarse one.
+//
+// Design: the block of mlp_tile.cuh (two consumer warpgroups of 64 rows, so
+// R = 128 rows per weight fetch, and one producer warp streaming the weights
+// through a ring of up to 8 stages), one persistent block per SM walking ray
+// groups. A group is RAYS = 32 rays, 16 per consumer warpgroup; each pass of
+// the MLP takes SPC = 4 samples of each ray (64 rows a warpgroup). Each
+// warpgroup places, encodes and composites its own rows, synchronised by its
+// own named barrier only: while one warpgroup runs that fp32 work, the other
+// can run its wgmmas on the stages in the ring (up to NS chunks ahead), so the
+// two drift into a ping-pong over the tensor cores. ERT is decided for the
+// whole group (a barrier-reduction over the 256 consumer threads), so both
+// warpgroups keep consuming the same weight stream; a stopped group ends only
+// that group, the block goes on with its next one.
 #include "kplanes_encode.cuh"
+#include "mlp_tile.cuh"
 
 using namespace nerf;
 
-constexpr int SPC = 4;                 // samples of each ray per MLP tile
-constexpr int RAYS = TILE_M / SPC;     // rays owned by one block
+constexpr int SPC = 4;                         // samples of each ray per pass
+constexpr int WG_RAYS = WG_ROWS / SPC;         // rays of one consumer warpgroup
+constexpr int RAYS = WG_RAYS * N_CONSUMERS;    // rays of a group
 constexpr int MAX_BANDS = 32;
 
 struct MarchArgs {
-  const float *rays_o, *rays_d, *ray_norms, *enc_dir, *z, *dt;
+  const float *rays_o, *rays_d, *ray_norms, *enc_dir, *z;
+  int inf_last;         // the last delta 1e10 |d| (else 0)
   const float* radii;   // (B,) pixel-cone radii (K4), else null
   float bands[MAX_BANDS];
   int n_bands, include_input;
@@ -61,15 +80,21 @@ struct MarchArgs {
 };
 
 constexpr int GEO = 8;   // per-ray floats in shared memory: o, d, |d|, radius
+// Per-ray composite state in shared memory (registers go to the MLP):
+// log T, sum w, sum w*z, sum w*rgb.
+enum RayState { LOGT, SW, SWZ, SWR, SWG, SWB, N_STATE = 8 };
 
-struct MarchSmemLayout {
-  size_t pts, var, geo, total;
-  __host__ __device__ explicit MarchSmemLayout(const MlpSmemLayout& L) {
-    pts = L.total;
-    var = align128(pts + size_t(TILE_M) * 3 * sizeof(float));
-    geo = align128(var + size_t(TILE_M) * 3 * sizeof(float));
-    total = align128(geo + size_t(RAYS) * GEO * sizeof(float));
-  }
+// Per consumer warpgroup: points (64 x 3), K4 variances (64 x 3), the rows'
+// z and dt (read where the points are placed, so the composite waits on no
+// global load; two buffers, by the parity of the pass, so the next pass's
+// placement cannot overwrite what this pass's composite reads), geo, state.
+constexpr int WG_MARCH_FLOATS = WG_ROWS * (3 * 2 + 2 * 2) + WG_RAYS * (GEO + N_STATE);
+constexpr size_t MARCH_EXTRA = N_CONSUMERS * WG_MARCH_FLOATS * sizeof(float);
+
+// Rows written straight into wgmma's swizzled A layout (K3's accessor).
+struct SwizzledRows {
+  bf16* base;
+  __device__ __forceinline__ bf16* at(int q, int c) const { return base + swz(q, c); }
 };
 
 __device__ __forceinline__ float sigmoidf(float x) {
@@ -159,166 +184,223 @@ __device__ __forceinline__ void frustum_gaussian(const float* g, float mu,
   }
 }
 
-template <int ENC, bool CONTRACT>
-__global__ void __launch_bounds__(N_THREADS)
+template <int ENC, bool CONTRACT, int H>
+__global__ void __launch_bounds__(N_THREADS, 1)
 fused_raymarch_kernel(const MarchArgs a, const MlpArgs P,
                       const __grid_constant__ KpArgs k) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const MlpSmemLayout L(P.H, P.EP, P.ED);
-  const MarchSmemLayout M(L);
-  const MlpSmem S = carve(smem, L);
-  float* pts = reinterpret_cast<float*>(smem + M.pts);   // (TILE_M, 3)
-  float* var = reinterpret_cast<float*>(smem + M.var);   // (TILE_M, 3), K4
-  float* geo = reinterpret_cast<float*>(smem + M.geo);   // (RAYS, GEO)
-  const int tid = threadIdx.x, ray0 = blockIdx.x * RAYS;
-  const int lde = P.EP + ROW_PAD, ldd = P.ED + ROW_PAD;
-  const int N = a.N;
-
-  if (tid < RAYS) {
-    const int r = ray0 + tid;
-    const bool ok = r < a.B;
-    for (int c = 0; c < 3; ++c) {
-      geo[tid * GEO + c] = ok ? a.rays_o[size_t(r) * 3 + c] : 0.0f;
-      geo[tid * GEO + 3 + c] = ok ? a.rays_d[size_t(r) * 3 + c] : 0.0f;
-    }
-    geo[tid * GEO + 6] = ok ? a.ray_norms[r] : 0.0f;
-    geo[tid * GEO + 7] = ok && ENC == ENC_IPE ? a.radii[r] : 0.0f;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  mlp_setup(smem, P);
+  const int wg = warpgroup(), t = threadIdx.x % WG_THREADS;
+  if (wg == N_CONSUMERS) {
+    mlp_produce(smem, P);
+    return;
   }
-  // Tile row q = ray (q / SPC), sample (q % SPC) of the chunk: the ray's
-  // encoded direction is the same for every chunk, so stage it once.
-  for (int i = tid; i < TILE_M * P.ED; i += N_THREADS) {
-    const int q = i / P.ED, c = i % P.ED, r = ray0 + q / SPC;
-    const float v = (r < a.B && c < a.D) ? a.enc_dir[size_t(r) * a.D + c] : 0.0f;
-    S.ed[q * ldd + c] = __float2bfloat16_rn(v);
-  }
-
-  const int my_ray = ray0 + tid;
-  const bool owner = tid < RAYS && my_ray < a.B;
-  float logT = 0.0f, sw = 0.0f, swz = 0.0f, swr = 0.0f, swg = 0.0f, swb = 0.0f;
+  consumer_regs();
+  const MlpSmem S = mlp_carve(smem, P);
+  float* pts = reinterpret_cast<float*>(S.extra) + wg * WG_MARCH_FLOATS;  // (64, 3)
+  float* var = pts + WG_ROWS * 3;                                          // (64, 3), K4
+  float* zdt = var + WG_ROWS * 3;                                          // (2, 2, 64)
+  float* geo = zdt + 4 * WG_ROWS;                                          // (16, GEO)
+  float* state = geo + WG_RAYS * GEO;                                      // (16, N_STATE)
+  bf16* enc = S.enc[wg];
+  bf16* ed = S.ed[wg];
+  const float* res = S.out[wg];
+  const int N = a.N, EP = P.EP, EDP = P.EDP;
   const int n_id = a.include_input ? 3 : 0;
   const int half = 3 * a.n_bands;
   const int n_enc = n_id + 2 * half;
-  __syncthreads();
+  const int n_groups = (a.B + RAYS - 1) / RAYS;
+  Pipe pipe(S, P);
 
-  for (int n0 = 0; n0 < N; n0 += SPC) {
-    if (a.use_ert) {
-      // ERT: once every real ray of the block has T < eps, the rest of its
-      // samples contribute < eps per channel; emit zero weights for them.
-      const int alive = owner && logT >= a.log_eps;
-      if (!__syncthreads_or(alive)) {
-        const int rest = N - n0;
-        for (int i = tid; i < RAYS * rest; i += N_THREADS) {
-          const int r = ray0 + i / rest, n = n0 + i % rest;
-          if (r < a.B) a.out_w[size_t(r) * N + n] = 0.0f;
-        }
-        break;
+  for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
+    const int ray0 = grp * RAYS + wg * WG_RAYS;
+    wg_sync(wg);   // the last group's reads of geo, ed and out are done
+    if (t < WG_RAYS) {
+      const int r = ray0 + t;
+      const bool ok = r < a.B;
+      for (int c = 0; c < 3; ++c) {
+        geo[t * GEO + c] = ok ? a.rays_o[size_t(r) * 3 + c] : 0.0f;
+        geo[t * GEO + 3 + c] = ok ? a.rays_d[size_t(r) * 3 + c] : 0.0f;
       }
+      geo[t * GEO + 6] = ok ? a.ray_norms[r] : 0.0f;
+      geo[t * GEO + 7] = ok && ENC == ENC_IPE ? a.radii[r] : 0.0f;
+      for (int i = 0; i < N_STATE; ++i) state[t * N_STATE + i] = 0.0f;
     }
-    if (tid < TILE_M) {
-      const int rl = tid / SPC, n = n0 + tid % SPC, r = ray0 + rl;
-      const float* g = geo + rl * GEO;
-      float p[3];
-      if (ENC == ENC_IPE) {
-        // padded rows take (mu, hw) = (1, 0), as the TPU's streams do: finite
-        // moments (denom = 3), and their samples are never composited
-        float mu = 1.0f, hw = 0.0f, v[3];
-        if (r < a.B && n < N) frustum_interval(a.z + size_t(r) * N, N, n, g[6], mu, hw);
-        frustum_gaussian<CONTRACT>(g, mu, hw, p, v);
-        for (int c = 0; c < 3; ++c) var[tid * 3 + c] = v[c];
+    // Row q = ray (q / SPC), sample (q % SPC) of the pass: the ray's encoded
+    // direction is the same for every pass, so stage it once per group.
+    for (int i = t; i < WG_ROWS * EDP; i += WG_THREADS) {
+      const int q = i / EDP, c = i % EDP, r = ray0 + q / SPC;
+      const float v = (r < a.B && c < a.D) ? a.enc_dir[size_t(r) * a.D + c] : 0.0f;
+      ed[swz(q, c)] = __float2bfloat16_rn(v);
+    }
+    float* st = state + (t < WG_RAYS ? t : 0) * N_STATE;
+    wg_sync(wg);
+
+    for (int n0 = 0; n0 < N; n0 += SPC) {
+      float* zrow = zdt + ((n0 / SPC) & 1) * 2 * WG_ROWS;
+      float* dtrow = zrow + WG_ROWS;
+      if (a.use_ert) {
+        // ERT: once every real ray of the group has T < eps, the rest of its
+        // samples contribute < eps per channel; emit zero weights for them.
+        const bool alive = t < WG_RAYS && ray0 + t < a.B && st[LOGT] >= a.log_eps;
+        if (!consumers_any(alive)) {
+          const int rest = N - n0;
+          for (int i = t; i < WG_RAYS * rest; i += WG_THREADS) {
+            const int r = ray0 + i / rest, n = n0 + i % rest;
+            if (r < a.B) a.out_w[size_t(r) * N + n] = 0.0f;
+          }
+          break;
+        }
+      }
+      // the last 64 threads place the rows, so the first 16 can still be
+      // compositing the last pass
+      if (t >= WG_THREADS - WG_ROWS) {
+        const int q = t - (WG_THREADS - WG_ROWS);
+        const int rl = q / SPC, n = n0 + q % SPC, r = ray0 + rl;
+        const float* g = geo + rl * GEO;
+        const bool real = r < a.B && n < N;
+        const float zn = real ? a.z[size_t(r) * N + n] : 0.0f;
+        const float gap = !real ? 0.0f
+                          : n + 1 < N ? __fsub_rn(a.z[size_t(r) * N + n + 1], zn)
+                          : a.inf_last ? 1e10f : 0.0f;
+        zrow[q] = zn;
+        dtrow[q] = __fmul_rn(gap, g[6]);
+        float p[3];
+        if (ENC == ENC_IPE) {
+          // padded rows take (mu, hw) = (1, 0), as the TPU's streams do: finite
+          // moments (denom = 3), and their samples are never composited
+          float mu = 1.0f, hw = 0.0f, v[3];
+          if (real) frustum_interval(a.z + size_t(r) * N, N, n, g[6], mu, hw);
+          frustum_gaussian<CONTRACT>(g, mu, hw, p, v);
+          for (int c = 0; c < 3; ++c) var[q * 3 + c] = v[c];
+        } else {
+          const float zm = zrow[q] * g[6];
+          for (int c = 0; c < 3; ++c) p[c] = g[c] + g[3 + c] * zm;
+          if (CONTRACT) contract_point(p);
+        }
+        for (int c = 0; c < 3; ++c) pts[q * 3 + c] = p[c];
+      }
+      wg_sync(wg);
+      if (ENC == ENC_KPLANES) {
+        kplanes_encode_rows(k, pts, WG_ROWS, WG_ROWS, t, WG_THREADS,
+                            SwizzledRows{enc}, EP);
       } else {
-        const float z = (r < a.B && n < N) ? a.z[size_t(r) * N + n] : 0.0f;
-        const float zm = z * g[6];
-        for (int c = 0; c < 3; ++c) p[c] = g[c] + g[3 + c] * zm;
-        if (CONTRACT) contract_point(p);
-      }
-      for (int c = 0; c < 3; ++c) pts[tid * 3 + c] = p[c];
-    }
-    __syncthreads();
-    if (ENC == ENC_KPLANES) {
-      kplanes_encode_rows(k, pts, TILE_M, S.enc, lde, P.EP);
-    } else {
-      for (int i = tid; i < TILE_M * P.EP; i += N_THREADS) {
-        const int q = i / P.EP, c = i % P.EP;
-        float v = 0.0f;
-        if (c < n_id) {
-          v = pts[q * 3 + c];
-        } else if (c < n_enc) {
-          const int j = c - n_id;
-          const int jj = j < half ? j : j - half;
-          const float f = a.bands[jj / 3];
-          const float arg = pts[q * 3 + jj % 3] * f;
-          v = j < half ? sinf(arg) : cosf(arg);
-          // K4: E[sin(f x)] = sin(f mean) exp(-f^2 var / 2), the same for cos
-          if (ENC == ENC_IPE) v *= expf(-0.5f * var[q * 3 + jj % 3] * (f * f));
+        // per row: the identity columns, one task per (band, coordinate) that
+        // writes its sin and its cos column, then the zero padding
+        const int per_row = n_id + half + (EP - n_enc);
+        for (int i = t; i < WG_ROWS * per_row; i += WG_THREADS) {
+          const int q = i / per_row, k = i % per_row;
+          if (k < n_id) {
+            enc[swz(q, k)] = __float2bfloat16_rn(pts[q * 3 + k]);
+          } else if (k < n_id + half) {
+            const int j = k - n_id;
+            const float f = a.bands[j / 3];
+            const float arg = pts[q * 3 + j % 3] * f;
+            float sv, cv;
+            sincosf(arg, &sv, &cv);
+            if (ENC == ENC_IPE) {
+              // K4: E[sin(f x)] = sin(f mean) exp(-f^2 var / 2), the same for cos
+              const float att = expf(-0.5f * var[q * 3 + j % 3] * (f * f));
+              sv *= att;
+              cv *= att;
+            }
+            enc[swz(q, n_id + j)] = __float2bfloat16_rn(sv);
+            enc[swz(q, n_id + half + j)] = __float2bfloat16_rn(cv);
+          } else {
+            enc[swz(q, n_enc + k - n_id - half)] = __float2bfloat16_rn(0.0f);
+          }
         }
-        S.enc[q * lde + c] = __float2bfloat16_rn(v);
+      }
+      fence_async_smem();
+      wg_sync(wg);
+
+      mlp_pass<H>(P, S, wg, pipe);
+      wg_sync(wg);
+
+      if (t < WG_RAYS && ray0 + t < a.B) {
+        float logT = st[LOGT], sw = st[SW], swz_ = st[SWZ];
+        float swr = st[SWR], swg = st[SWG], swb = st[SWB];
+        for (int s = 0; s < SPC && n0 + s < N; ++s) {
+          const int q = t * SPC + s;
+          const float* o = res + q * 4;
+          const float raw = o[3];
+          const float sig = a.softplus
+                                ? fmaxf(raw, 0.0f) + log1pf(expf(-fabsf(raw)))
+                                : fmaxf(raw, 0.0f);
+          const float sdt = fminf(fmaxf(sig * dtrow[q], 0.0f), 60.0f);
+          const float one_m_alpha = expf(-sdt);
+          const float w = expf(logT) * (1.0f - one_m_alpha);
+          a.out_w[size_t(ray0 + t) * N + n0 + s] = w;
+          logT += logf(one_m_alpha + 1e-10f);
+          sw += w;
+          swz_ += w * zrow[q];
+          swr += w * sigmoidf(o[0]);
+          swg += w * sigmoidf(o[1]);
+          swb += w * sigmoidf(o[2]);
+        }
+        st[LOGT] = logT; st[SW] = sw; st[SWZ] = swz_;
+        st[SWR] = swr; st[SWG] = swg; st[SWB] = swb;
       }
     }
-    __syncthreads();
 
-    mlp_tile(P, S);
-
-    if (owner) {
-      for (int s = 0; s < SPC && n0 + s < N; ++s) {
-        const int q = tid * SPC + s;
-        const size_t idx = size_t(my_ray) * N + n0 + s;
-        const float raw = S.sigma[q];
-        const float sig = a.softplus
-                              ? fmaxf(raw, 0.0f) + log1pf(expf(-fabsf(raw)))
-                              : fmaxf(raw, 0.0f);
-        const float sdt = fminf(fmaxf(sig * a.dt[idx], 0.0f), 60.0f);
-        const float one_m_alpha = expf(-sdt);
-        const float w = expf(logT) * (1.0f - one_m_alpha);
-        a.out_w[idx] = w;
-        logT += logf(one_m_alpha + 1e-10f);
-        sw += w;
-        swz += w * a.z[idx];
-        swr += w * sigmoidf(S.rgb[q * 3 + 0]);
-        swg += w * sigmoidf(S.rgb[q * 3 + 1]);
-        swb += w * sigmoidf(S.rgb[q * 3 + 2]);
-      }
+    if (t < WG_RAYS && ray0 + t < a.B) {
+      const float acc = fminf(fmaxf(st[SW], 0.0f), 1.0f);
+      const float bg = a.white_bkgd ? 1.0f - acc : 0.0f;
+      float* o = a.out_ray + size_t(ray0 + t) * 5;
+      o[0] = st[SWR] + bg;
+      o[1] = st[SWG] + bg;
+      o[2] = st[SWB] + bg;
+      o[3] = acc;
+      o[4] = st[SWZ];
     }
-    __syncthreads();
   }
+  mlp_drain(S, pipe);
+}
 
-  if (owner) {
-    const float acc = fminf(fmaxf(sw, 0.0f), 1.0f);
-    const float bg = a.white_bkgd ? 1.0f - acc : 0.0f;
-    float* o = a.out_ray + size_t(my_ray) * 5;
-    o[0] = swr + bg;
-    o[1] = swg + bg;
-    o[2] = swb + bg;
-    o[3] = acc;
-    o[4] = swz;
-  }
+template <int ENC, bool CONTRACT, int H>
+static int launch_march(const MarchArgs& a, MlpArgs P, const KpArgs& k,
+                        cudaStream_t stream) {
+  const size_t smem = plan_stages(P, MARCH_EXTRA);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = prepare_kernel(fused_raymarch_kernel<ENC, CONTRACT, H>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int groups = (a.B + RAYS - 1) / RAYS;
+  if (groups == 0) return 0;
+  const int grid = groups < sm_count() ? groups : sm_count();
+  fused_raymarch_kernel<ENC, CONTRACT, H><<<grid, N_THREADS, smem, stream>>>(a, P, k);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int ENC, bool CONTRACT>
-static int launch_march(const MarchArgs& a, const MlpArgs& P, const KpArgs& k,
-                        size_t smem, int blocks, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_raymarch_kernel<ENC, CONTRACT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (blocks == 0) return 0;
-  fused_raymarch_kernel<ENC, CONTRACT><<<blocks, N_THREADS, smem, stream>>>(a, P, k);
-  return static_cast<int>(cudaGetLastError());
+static int launch_h(const MarchArgs& a, const MlpArgs& P, const KpArgs& k,
+                    cudaStream_t stream) {
+  return P.H == 256 ? launch_march<ENC, CONTRACT, 256>(a, P, k, stream)
+                    : launch_march<ENC, CONTRACT, 128>(a, P, k, stream);
+}
+
+template <int ENC>
+static int launch_enc(const MarchArgs& a, const MlpArgs& P, const KpArgs& k,
+                      bool contract, cudaStream_t stream) {
+  return contract ? launch_h<ENC, true>(a, P, k, stream)
+                  : launch_h<ENC, false>(a, P, k, stream);
 }
 
 // kp_pack null: the frequency encoder with bands/include_input, or with
 // ipe_radii (B,) its integrated form (K4; N >= 2). Otherwise the k-planes
 // encoder of the packed tables (kplanes_encode.cuh: make_kp_args), its
-// hybrid channels from kp_bands; bands are unused.
+// hybrid channels from kp_bands; bands are unused. staged: the weight stream
+// (ops/fused_mlp.py:stage_weights).
 extern "C" int nerf_fused_raymarch(
     const void* rays_o, const void* rays_d, const void* ray_norms,
-    const void* enc_dir, const void* z, const void* dt, const float* bands,
+    const void* enc_dir, const void* z, int infinite_last_bin, const float* bands,
     int n_bands, int include_input, const void* wpack,
-    const long long* offsets, int B, int N, int D, int H, int EP, int ED,
-    int n_layers, int skip_pos, int softplus, int white_bkgd, int use_ert,
-    float log_eps, int contract, const void* ipe_radii, const void* kp_pack,
-    const long long* kp_offsets, const int* kp_res, int kp_scales, int kp_F,
-    int kp_L, int kp_Fl, int kp_tfold, float kp_box, const float* kp_bands,
-    int kp_n_bands, void* out_ray, void* out_w, void* stream) {
+    const long long* offsets, const void* staged, int B, int N, int D, int H,
+    int EP, int ED, int n_layers, int skip_pos, int softplus, int white_bkgd,
+    int use_ert, float log_eps, int contract, const void* ipe_radii,
+    const void* kp_pack, const long long* kp_offsets, const int* kp_res,
+    int kp_scales, int kp_F, int kp_L, int kp_Fl, int kp_tfold, float kp_box,
+    const float* kp_bands, int kp_n_bands, void* out_ray, void* out_w,
+    void* stream) {
   const bool kp = kp_pack != nullptr, ipe = ipe_radii != nullptr;
   KpArgs k{};
   if (!mlp_shape_ok(H, EP, ED, n_layers, skip_pos) || D > ED || B < 0 || N < 1 ||
@@ -340,7 +422,7 @@ extern "C" int nerf_fused_raymarch(
   a.ray_norms = static_cast<const float*>(ray_norms);
   a.enc_dir = static_cast<const float*>(enc_dir);
   a.z = static_cast<const float*>(z);
-  a.dt = static_cast<const float*>(dt);
+  a.inf_last = infinite_last_bin;
   a.radii = static_cast<const float*>(ipe_radii);
   for (int i = 0; i < MAX_BANDS; ++i) a.bands[i] = i < n_bands ? bands[i] : 0.0f;
   a.n_bands = n_bands;
@@ -350,17 +432,10 @@ extern "C" int nerf_fused_raymarch(
   a.log_eps = log_eps;
   a.out_ray = static_cast<float*>(out_ray);
   a.out_w = static_cast<float*>(out_w);
-  const MlpArgs P = make_mlp_args(wpack, offsets, H, EP, ED, n_layers, skip_pos);
-  const MlpSmemLayout L(H, EP, ED);
-  const MarchSmemLayout M(L);
-  const int blocks = (B + RAYS - 1) / RAYS;
+  const MlpArgs P = make_mlp_args(wpack, offsets, staged, H, EP, ED, n_layers,
+                                  skip_pos);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kp)
-    return contract ? launch_march<ENC_KPLANES, true>(a, P, k, M.total, blocks, st)
-                    : launch_march<ENC_KPLANES, false>(a, P, k, M.total, blocks, st);
-  if (ipe)
-    return contract ? launch_march<ENC_IPE, true>(a, P, k, M.total, blocks, st)
-                    : launch_march<ENC_IPE, false>(a, P, k, M.total, blocks, st);
-  return contract ? launch_march<ENC_FREQ, true>(a, P, k, M.total, blocks, st)
-                  : launch_march<ENC_FREQ, false>(a, P, k, M.total, blocks, st);
+  if (kp) return launch_enc<ENC_KPLANES>(a, P, k, contract, st);
+  if (ipe) return launch_enc<ENC_IPE>(a, P, k, contract, st);
+  return launch_enc<ENC_FREQ>(a, P, k, contract, st);
 }

@@ -15,18 +15,23 @@
 
 using namespace nerf;
 
-__global__ void __launch_bounds__(N_THREADS)
+constexpr int KP_TILE_M = 64;      // rows per block
+constexpr int KP_THREADS = 128;
+constexpr int KP_ROW_PAD = 8;      // bf16 pad per staged row (16 B)
+
+__global__ void __launch_bounds__(KP_THREADS)
 kplanes_encode_kernel(const float* __restrict__ pts, int Q,
                       const __grid_constant__ KpArgs k,
                       int EP, bf16* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* rows = reinterpret_cast<bf16*>(smem);
-  const int lde = EP + ROW_PAD;
-  const int row0 = blockIdx.x * TILE_M, n = min(TILE_M, Q - row0);
-  kplanes_encode_rows(k, pts + size_t(row0) * 3, n, rows, lde, EP);
+  const int lde = EP + KP_ROW_PAD;
+  const int row0 = blockIdx.x * KP_TILE_M, n = min(KP_TILE_M, Q - row0);
+  kplanes_encode_rows(k, pts + size_t(row0) * 3, n, KP_TILE_M, threadIdx.x,
+                      KP_THREADS, RowMajorRows{rows, lde}, EP);
   __syncthreads();
   const int chunks = EP / 8;
-  for (int i = threadIdx.x; i < n * chunks; i += N_THREADS) {
+  for (int i = threadIdx.x; i < n * chunks; i += KP_THREADS) {
     const int q = i / chunks, c = (i % chunks) * 8;
     *reinterpret_cast<uint4*>(out + size_t(row0 + q) * EP + c) =
         *reinterpret_cast<const uint4*>(rows + q * lde + c);
@@ -45,14 +50,14 @@ extern "C" int nerf_kplanes_encode(const void* pts, int Q, const void* kp_pack,
                     box, bands, n_bands) ||
       kp_row_dim(k) > EP)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = size_t(TILE_M) * (EP + ROW_PAD) * sizeof(bf16);
+  const size_t smem = size_t(KP_TILE_M) * (EP + KP_ROW_PAD) * sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
       kplanes_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (Q == 0) return 0;
-  const dim3 grid((Q + TILE_M - 1) / TILE_M);
-  kplanes_encode_kernel<<<grid, N_THREADS, smem,
+  const dim3 grid((Q + KP_TILE_M - 1) / KP_TILE_M);
+  kplanes_encode_kernel<<<grid, KP_THREADS, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pts), Q, k, EP, static_cast<bf16*>(out));
   return static_cast<int>(cudaGetLastError());

@@ -26,12 +26,23 @@
 // Design: tables in the JAX (R, R, F) layout, so one 8-feature texel is one
 // 16-byte __ldg; one thread per (row, scale), one per (row, lines) and one per
 // (row, hybrid channels + zero padding), so a warp's 32 threads take one kind
-// of task; features in groups of 8 to bound registers.
+// of task; features in groups of 8 to bound registers. Rows are written
+// through an accessor (row-major for the encode-only entry, wgmma's swizzled
+// layout inside K2) that keeps each 8-column group contiguous.
 #pragma once
 
-#include "mlp_tile.cuh"
+#include "common.cuh"
 
 namespace nerf {
+
+// Row-major rows at stride ld: the encode-only entry's staging buffer.
+struct RowMajorRows {
+  bf16* base;
+  int ld;
+  __device__ __forceinline__ bf16* at(int q, int c) const {
+    return base + size_t(q) * ld + c;
+  }
+};
 
 constexpr int KP_MAX_SCALES = 4;
 constexpr int KP_MAX_BANDS = 32;
@@ -135,9 +146,11 @@ __device__ __forceinline__ void store8(bf16* dst, const float (&v)[8]) {
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(b);
 }
 
-// Scale s of one row: F features at out[0, F).
+// Scale s of row q: F features at columns [c0, c0 + F), c0 % 8 == 0.
+template <class Out>
 __device__ __forceinline__ void kp_scale(const KpArgs& k, int s,
-                                         const float (&x01)[3], bf16* out) {
+                                         const float (&x01)[3], const Out& out,
+                                         int q, int c0) {
   const int R = k.res[s], F = k.F;
   Hat h[3];
 #pragma unroll
@@ -174,13 +187,14 @@ __device__ __forceinline__ void kp_scale(const KpArgs& k, int s,
         for (int e = 0; e < 8; ++e) prod[e] = __fmul_rn(prod[e], tf[e]);
       }
     }
-    store8(out + f0, prod);
+    store8(out.at(q, c0 + f0), prod);
   }
 }
 
-// The CP lines of one row: Fl features at out[0, Fl).
+// The CP lines of row q: Fl features at columns [c0, c0 + Fl).
+template <class Out>
 __device__ __forceinline__ void kp_lines(const KpArgs& k, const float (&x01)[3],
-                                         bf16* out) {
+                                         const Out& out, int q, int c0) {
   const int Fl = k.Fl;
   Hat h[3];
 #pragma unroll
@@ -195,15 +209,18 @@ __device__ __forceinline__ void kp_lines(const KpArgs& k, const float (&x01)[3],
 #pragma unroll
       for (int e = 0; e < 8; ++e) prod[e] = d == 0 ? v[e] : __fmul_rn(prod[e], v[e]);
     }
-    store8(out + f0, prod);
+    store8(out.at(q, c0 + f0), prod);
   }
 }
 
 // The hybrid channels [u, sin(f u).., cos(f u)..] of u = 2*x01-1 (the
-// frequency encoder's column order), then zeros, over out[0, n).
+// frequency encoder's column order), then zeros, over columns [c0, end) of
+// row q (c0 % 8 == 0).
+template <class Out>
 __device__ __forceinline__ void kp_hybrid_and_pad(const KpArgs& k,
                                                   const float (&x01)[3],
-                                                  bf16* out, int n) {
+                                                  const Out& out, int q, int c0,
+                                                  int end) {
   const float u[3] = {__fsub_rn(__fmul_rn(x01[0], 2.0f), 1.0f),
                       __fsub_rn(__fmul_rn(x01[1], 2.0f), 1.0f),
                       __fsub_rn(__fmul_rn(x01[2], 2.0f), 1.0f)};
@@ -218,40 +235,43 @@ __device__ __forceinline__ void kp_hybrid_and_pad(const KpArgs& k,
       const float arg = __fmul_rn(u[jj % 3], k.bands[jj / 3]);
       v = j < half ? sinf(arg) : cosf(arg);
     }
-    out[c] = __float2bfloat16_rn(v);
+    *out.at(q, c0 + c) = __float2bfloat16_rn(v);
   }
-  // zero padding: 16-byte stores from the first aligned column
+  // zero padding: 16-byte stores from the first 8-aligned column
   const bf16 zero = __float2bfloat16_rn(0.0f);
-  int c = n_enc;
-  for (; c < n && (reinterpret_cast<uintptr_t>(out + c) & 15); ++c) out[c] = zero;
-  for (; c + 8 <= n; c += 8) *reinterpret_cast<uint4*>(out + c) = make_uint4(0, 0, 0, 0);
-  for (; c < n; ++c) out[c] = zero;
+  int c = c0 + n_enc;
+  for (; c < end && (c & 7); ++c) *out.at(q, c) = zero;
+  for (; c + 8 <= end; c += 8) *reinterpret_cast<uint4*>(out.at(q, c)) = make_uint4(0, 0, 0, 0);
+  for (; c < end; ++c) *out.at(q, c) = zero;
 }
 
-// Encode rows [0, n_rows) of a tile: pts (n_rows, 3) fp32 world points (in
-// shared or global memory) -> enc rows of EP bf16 at stride lde. Called by
-// all N_THREADS threads of the block; the caller synchronises after it.
-// k is the kernel's __grid_constant__ parameter, indexed in place.
+// Encode rows [0, n_rows) of a tile of tile_rows: pts (n_rows, 3) fp32 world
+// points (in shared or global memory) -> rows of EP bf16 columns through the
+// accessor out. Called by the nthreads threads of the tile, thread tid; the
+// caller synchronises after it. k is the kernel's __grid_constant__
+// parameter, indexed in place.
+template <class Out>
 __device__ __forceinline__ void kplanes_encode_rows(const KpArgs& k,
                                                    const float* pts, int n_rows,
-                                                   bf16* enc, int lde, int EP) {
+                                                   int tile_rows, int tid,
+                                                   int nthreads, const Out& out,
+                                                   int EP) {
   const int kinds = k.n_scales + 2;
   const int c_line = k.n_scales * k.F, c_hyb = c_line + k.Fl;
-  for (int task = threadIdx.x; task < TILE_M * kinds; task += N_THREADS) {
-    const int q = task % TILE_M, kind = task / TILE_M;
+  for (int task = tid; task < tile_rows * kinds; task += nthreads) {
+    const int q = task % tile_rows, kind = task / tile_rows;
     if (q >= n_rows) continue;
     float x01[3];
 #pragma unroll
     for (int d = 0; d < 3; ++d)
       x01[d] = fminf(fmaxf(__fadd_rn(__fdiv_rn(pts[q * 3 + d], k.box), 0.5f),
                            0.0f), 1.0f);
-    bf16* row = enc + size_t(q) * lde;
     if (kind < k.n_scales)
-      kp_scale(k, kind, x01, row + kind * k.F);
+      kp_scale(k, kind, x01, out, q, kind * k.F);
     else if (kind == k.n_scales)
-      kp_lines(k, x01, row + c_line);
+      kp_lines(k, x01, out, q, c_line);
     else
-      kp_hybrid_and_pad(k, x01, row + c_hyb, EP - c_hyb);
+      kp_hybrid_and_pad(k, x01, out, q, c_hyb, EP);
   }
 }
 

@@ -1,41 +1,75 @@
-// The NeRF skip MLP over one tile of TILE_M sample rows, as a block-level
-// __device__ function shared by the K1 (fused_mlp.cu) and K2
-// (fused_raymarch.cu) kernels.
+// The NeRF skip MLP over tiles of sample rows, for Hopper: the pieces that
+// the K1 (fused_mlp.cu) and K2 (fused_raymarch.cu) kernels are built from.
 //
 // Replaces the body of the TPU kernel nerf_sandbox_tpu/ops/fused_mlp.py:_kernel
-// with the same rounding points: bf16 operands, fp32 accumulation, an fp32
-// add of the bf16 bias, relu, then a cast to bf16 between layers; the skip
-// layer as h@W_h + enc@W_e; sigma from the last trunk activation (the TPU's
-// column H of the feature matmul); the feature cast to bf16 before the
-// colour head on [feature, enc_dir].
+// (pl.pallas_call at :188) with the same rounding points: bf16 operands, fp32
+// accumulation, an fp32 add of the bf16 bias, relu, then a cast to bf16
+// between layers; the skip layer as h@W_h + enc@W_e; sigma from the bf16 last
+// trunk activation (the TPU's column H of the feature matmul); the feature
+// cast to bf16 before the colour head on [feature, enc_dir].
 //
-// Bound on the H100: 1.19 MFLOP of bf16 work per row against ~180 input
-// bytes, so the tensor cores, not HBM, set the bound. Design: the tile's
-// activations live in shared memory as bf16 (ping-pong buffers of
-// TILE_M x (H+8)); each of the 4 warps owns a column slice of every layer and
-// runs nvcuda::wmma bf16 16x16x16 products with fp32 accumulators over the
-// whole tile height, reading weight fragments straight from global memory
-// (all weights are ~1.2 MB and stay in L2). The epilogue goes through a
-// per-warp 16x16 fp32 staging tile because wmma's accumulator layout is
-// opaque. wgmma/TMA and shared-memory weight staging are later work.
+// Bound on the H100: 1.19 MFLOP of bf16 work per row at the vanilla widths
+// (8x256, skip 4) against ~180 bytes of HBM traffic, so the tensor cores set
+// the bound (989 TFLOP/s dense bf16): 1.258 ms per 2^20 rows. The ~1.2 MB of
+// weights are read again for every tile of rows, from L2: per tile of R rows
+// that stream must come at 989e12 / R bytes/s for the tensor cores to run at
+// peak (7.7 TB/s at R = 128). A call of Q rows pulls ceil(Q / 128) x the
+// stream (1.196 MB at 8x256): 9.8 GB for 2^20 rows, ~4 TB/s at the time K1
+// takes on an H100 80GB HBM3, and K1 takes that time within 1% with the
+// copies removed (probe_weight_stream.py, PERF.md), so the stream is not
+// what holds the tile back and blocks are not paired for TMA multicast.
+//
+// Design (a block of N_THREADS = 384 threads, one block per SM, persistent):
+//  * two consumer warpgroups own 64 rows each, so every weight stage in shared
+//    memory feeds R = TILE_M = 128 rows; they run wgmma m64nNk16 (N = H, or
+//    H/2 for the colour head) with fp32 accumulators in registers;
+//  * one producer warp (the first of a third warpgroup, whose other three
+//    warps only hand their registers back) streams the weights through a
+//    ring of NS stages (up to 8; 5 at H = 256, 8 at H = 128: as many as
+//    shared memory holds), each a 64 (K) x N slice, transposed and 128-byte
+//    swizzled on the host
+//    (ops/fused_mlp.py:stage_weights) so that a stage is one contiguous
+//    cp.async.bulk, completed on the stage's "full" mbarrier; every consumer
+//    warp arrives on the stage's "empty" mbarrier once its wgmmas have read
+//    it. The stream is the same sequence of chunks for every pass of the MLP,
+//    so the producer cycles through it without knowing the tiles, and keeps
+//    loading the next pass's first chunks while the consumers finish a pass;
+//  * activations never leave registers between hidden layers: the epilogue
+//    (bias, relu, bf16 cast) runs on the accumulator in wgmma's documented
+//    layout, and two neighbouring 8-column groups of the result are exactly
+//    the A fragment of the next layer's k16 step, so A comes from registers
+//    (as FlashAttention-3 feeds P to its PV product). Only the encoded inputs
+//    (enc, read by layer 0 and the skip layer; enc_dir, read by the colour
+//    head) sit in shared memory, in the same swizzled K-major layout, and are
+//    read by wgmma through descriptors;
+//  * sigma and rgb are row dot products of bf16 activations held by the four
+//    lanes of a quad, reduced with two shuffles;
+//  * registers: the compiler gives every thread 168 (65536 / 384); setmaxnreg
+//    then takes the producer warpgroup down to PRODUCER_REGS and gives each
+//    consumer thread CONSUMER_REGS (its 64 x 256 fp32 accumulator is 128
+//    registers, the packed activations 64). The roles are read through a
+//    warp shuffle so that the compiler sees them warp-uniform and keeps the
+//    wgmmas asynchronous.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace nerf {
 
-using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-
-constexpr int TILE_M = 64;                 // sample rows per MLP tile
-constexpr int N_WARPS = 4;
-constexpr int N_THREADS = N_WARPS * 32;
-constexpr int ROW_PAD = 8;                 // bf16 pad per shared row (16 B)
-constexpr int M_FRAGS = TILE_M / 16;
+constexpr int WG_ROWS = 64;                          // rows of one consumer warpgroup
+constexpr int N_CONSUMERS = 2;                       // consumer warpgroups
+constexpr int TILE_M = WG_ROWS * N_CONSUMERS;        // R: rows per weight fetch
+constexpr int WG_THREADS = 128;
+constexpr int N_CONSUMER_THREADS = N_CONSUMERS * WG_THREADS;
+constexpr int N_THREADS = N_CONSUMER_THREADS + WG_THREADS;   // + the producer's
+constexpr int KC = 64;                               // K rows of a weight stage
+constexpr int A_CHUNK_BYTES = WG_ROWS * KC * 2;      // a 64x64 bf16 A block
+constexpr int MAX_STAGES = 8;
+constexpr int CONSUMER_REGS = 240;
+constexpr int PRODUCER_REGS = 24;
+constexpr size_t SMEM_LIMIT = 232448;                // per block, after opt-in
+constexpr int BAR_CONSUMERS = 3;                     // ids 1, 2: one per warpgroup
 
 // Packed weight arrays, in the order of PACK_FIELDS in ops/fused_mlp.py;
 // the host passes each array's element offset into one bf16 buffer.
@@ -46,201 +80,563 @@ enum PackField {
 
 struct MlpArgs {
   const bf16* p[N_FIELDS];
-  int H, EP, ED, n_layers, skip_pos;
+  const bf16* staged;   // the weight stream, in the order the stages use it
+  int H, EP, ED, EDP;   // EDP: ED rounded up to KC
+  int n_layers, skip_pos, NS;
+};
+
+// Element offsets of the small vectors copied into shared memory.
+struct PrmOffsets {
+  int b0, b_mid, bskip, b_feat, w_sig, bc1, wc2t, b_sig, bc2, total;
+};
+
+__host__ __device__ inline PrmOffsets prm_offsets(int H, int n_layers) {
+  PrmOffsets o;
+  int x = 0;
+  o.b0 = x;     x += H;
+  o.b_mid = x;  x += (n_layers - 2) * H;
+  o.bskip = x;  x += H;
+  o.b_feat = x; x += H;
+  o.w_sig = x;  x += H;
+  o.bc1 = x;    x += H / 2;
+  o.wc2t = x;   x += 3 * (H / 2);
+  o.b_sig = x;  x += 8;
+  o.bc2 = x;    x += 8;
+  o.total = x;
+  return o;
+}
+
+// Byte offsets from the 1024-byte aligned base of dynamic shared memory. The
+// stages and the A blocks are multiples of 1024 bytes (the 128-byte swizzle
+// repeats every 8 rows of 128 bytes); `extra` is the calling kernel's own.
+struct MlpLayout {
+  size_t ring, enc[N_CONSUMERS], ed[N_CONSUMERS], out[N_CONSUMERS];
+  size_t prm, bars, extra, total;
+  __host__ __device__ MlpLayout(int H, int EP, int EDP, int n_layers, int NS,
+                                size_t extra_bytes) {
+    size_t o = 0;
+    ring = o;   o += NS * size_t(KC) * H * 2;
+    for (int w = 0; w < N_CONSUMERS; ++w) { enc[w] = o; o += (EP / KC) * A_CHUNK_BYTES; }
+    for (int w = 0; w < N_CONSUMERS; ++w) { ed[w] = o; o += (EDP / KC) * A_CHUNK_BYTES; }
+    for (int w = 0; w < N_CONSUMERS; ++w) { out[w] = o; o += WG_ROWS * 4 * sizeof(float); }
+    prm = o;    o += ((prm_offsets(H, n_layers).total * 2 + 15) & ~size_t(15));
+    bars = o;   o += (2 * MAX_STAGES + 2) * 8;
+    extra = o;  o += extra_bytes;
+    total = o + 1024;                       // room to align the base
+  }
 };
 
 struct MlpSmem {
-  bf16 *h0, *h1, *enc, *ed;
-  float *scratch, *sigma, *rgb;
+  uint32_t ring, bars;                      // shared-space addresses
+  bf16* enc[N_CONSUMERS];
+  bf16* ed[N_CONSUMERS];
+  float* out[N_CONSUMERS];                  // per row: r, g, b logits, sigma logit
+  const bf16* prm;
+  int* done;                                // set once the consumers are finished
+  unsigned char* extra;
 };
 
-__host__ __device__ inline size_t align128(size_t x) {
-  return (x + 127) & ~size_t(127);
+// ---- PTX helpers ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Byte offsets of the MLP's shared-memory buffers (all 128-byte aligned, as
-// wmma needs 32-byte aligned fragment pointers).
-struct MlpSmemLayout {
-  size_t h0, h1, enc, ed, scratch, sigma, rgb, total;
-  __host__ __device__ MlpSmemLayout(int H, int EP, int ED) {
-    size_t o = 0;
-    h0 = o;      o = align128(o + size_t(TILE_M) * (H + ROW_PAD) * sizeof(bf16));
-    h1 = o;      o = align128(o + size_t(TILE_M) * (H + ROW_PAD) * sizeof(bf16));
-    enc = o;     o = align128(o + size_t(TILE_M) * (EP + ROW_PAD) * sizeof(bf16));
-    ed = o;      o = align128(o + size_t(TILE_M) * (ED + ROW_PAD) * sizeof(bf16));
-    scratch = o; o = align128(o + size_t(N_WARPS) * 256 * sizeof(float));
-    sigma = o;   o = align128(o + size_t(TILE_M) * sizeof(float));
-    rgb = o;     o = align128(o + size_t(TILE_M) * 3 * sizeof(float));
-    total = o;
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+  return ok != 0;
+}
+
+// A deadlock guard: no wait of these kernels lasts a second when they are
+// right, so a wait that outlasts ~20 s of SM clock traps (an error the launch
+// reports) instead of hanging the card.
+constexpr long long WAIT_LIMIT_CYCLES = 40000000000LL;
+
+// The consumers' wait. Its loop exits on a warp vote, a branch the compiler
+// knows to be warp-uniform, so the wgmmas scheduled around it are not taken
+// for divergent code (which would serialize them). It has no guard of its
+// own: consumers that stall leave the producer waiting on a stage, and the
+// producer's guard traps.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!__all_sync(0xffffffffu, mbar_try_wait(bar, parity))) {
+  }
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// bytes (a multiple of 16) from global src to shared dst, completed on bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Generic-proxy stores to shared memory, made visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The 128 threads of consumer warpgroup wg (barriers 1 and 2).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(1 + wg), "n"(WG_THREADS) : "memory");
+}
+
+// True on every consumer thread if v is true on any: a barrier of the 256
+// consumer threads only, the producer does not take part.
+__device__ __forceinline__ bool consumers_any(bool v) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred p, q;\n"
+      "setp.ne.u32 q, %1, 0;\n"
+      "bar.red.or.pred p, %2, %3, q;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(r) : "r"(uint32_t(v)), "n"(BAR_CONSUMERS), "n"(N_CONSUMER_THREADS)
+      : "memory");
+  // the same on every lane; a shuffle tells the compiler so
+  return __shfl_sync(0xffffffffu, r, 0) != 0;
+}
+
+// Keep the compiler from moving register reads or reuses across a wgmma wait.
+template <int n>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int n>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// wgmma matrix descriptor of a K-major operand with the 128-byte swizzle:
+// rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes apart. Adding 2 steps
+// the start 32 bytes, i.e. one k16 slice.
+__device__ __forceinline__ uint64_t sdesc(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// Element offset of (row r, column c) in a swizzled 64-row A buffer: column
+// blocks of 64 are 64x64 bf16 tiles; 16-byte unit u of row r sits at u^(r%8).
+__device__ __forceinline__ int swz(int r, int c) {
+  return (c >> 6) * (WG_ROWS * KC) + r * KC + ((((c >> 3) & 7) ^ (r & 7)) << 3) +
+         (c & 7);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// relu then the bf16 cast of two values in one instruction (the same bits as
+// fmaxf then the cast; a NaN stays NaN, as in torch.relu).
+__device__ __forceinline__ uint32_t pack_bf16_relu(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+}
+
+// ---- block set-up, producer, pipeline ----
+
+// x, opaque to the compiler: values derived from it are computed where they
+// are used and not carried across the role split, where every live register
+// would have to fit the producer's PRODUCER_REGS.
+__device__ __forceinline__ int launder(int x) {
+  asm volatile("mov.b32 %0, %0;" : "+r"(x));
+  return x;
+}
+
+// The block's shared memory, carved from the layout of P (each role does
+// this itself after the split).
+__device__ inline MlpSmem mlp_carve(unsigned char* raw, const MlpArgs& P) {
+  const MlpLayout L(launder(P.H), launder(P.EP), launder(P.EDP),
+                    launder(P.n_layers), launder(P.NS), 0);
+  const uint32_t a = launder(static_cast<int>(smem_addr(raw)));
+  unsigned char* base = raw + ((1024 - (a & 1023)) & 1023);
+  MlpSmem S;
+  S.ring = smem_addr(base + L.ring);
+  S.bars = smem_addr(base + L.bars);
+  for (int w = 0; w < N_CONSUMERS; ++w) {
+    S.enc[w] = reinterpret_cast<bf16*>(base + L.enc[w]);
+    S.ed[w] = reinterpret_cast<bf16*>(base + L.ed[w]);
+    S.out[w] = reinterpret_cast<float*>(base + L.out[w]);
+  }
+  bf16* prm = reinterpret_cast<bf16*>(base + L.prm);
+  S.prm = prm;
+  S.done = reinterpret_cast<int*>(base + L.bars + 2 * MAX_STAGES * 8);
+  S.extra = base + L.extra;
+  return S;
+}
+
+// Called by all N_THREADS threads first: copies the biases and the sigma /
+// rgb head vectors to shared memory, initialises the barriers.
+__device__ inline void mlp_setup(unsigned char* raw, const MlpArgs& P) {
+  const MlpSmem S = mlp_carve(raw, P);
+  bf16* prm = const_cast<bf16*>(S.prm);
+  const int H = P.H, tid = threadIdx.x;
+  const PrmOffsets o = prm_offsets(H, P.n_layers);
+  for (int i = tid; i < H; i += N_THREADS) {
+    prm[o.b0 + i] = P.p[B0][i];
+    prm[o.bskip + i] = P.p[BSKIP][i];
+    prm[o.b_feat + i] = P.p[B_FEAT][i];
+    prm[o.w_sig + i] = P.p[W_SIG][i];
+  }
+  for (int i = tid; i < (P.n_layers - 2) * H; i += N_THREADS)
+    prm[o.b_mid + i] = P.p[B_MID][i];
+  for (int i = tid; i < H / 2; i += N_THREADS) prm[o.bc1 + i] = P.p[BC1][i];
+  for (int i = tid; i < 3 * (H / 2); i += N_THREADS) prm[o.wc2t + i] = P.p[WC2T][i];
+  if (tid < 3) prm[o.bc2 + tid] = P.p[BC2][tid];
+  if (tid == 0) {
+    prm[o.b_sig] = P.p[B_SIG][0];
+    for (int s = 0; s < MAX_STAGES; ++s) {
+      mbar_init(S.bars + 8 * s, 1);                                // full
+      mbar_init(S.bars + 8 * (MAX_STAGES + s), N_CONSUMER_THREADS / 32);  // empty
+    }
+    *S.done = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Chunks of the weight stream: the trunk's (64 x H each: W0, then per layer
+// W_mid or W_skip_h + W_skip_e, then W_feat), then the colour head's
+// (64 x H/2: W_c1's feature rows, then its enc_dir rows padded to EDP).
+__host__ __device__ inline int trunk_chunks(int H, int EP, int n_layers) {
+  return 2 * (EP / KC) + n_layers * (H / KC);
+}
+__host__ __device__ inline int stream_chunks(int H, int EP, int EDP, int n_layers) {
+  return trunk_chunks(H, EP, n_layers) + H / KC + EDP / KC;
+}
+
+// The producer warpgroup: one thread refills each stage as soon as all
+// consumer warps have released it, cycling through the stream, until the
+// consumers are done; the other threads leave.
+__device__ inline void mlp_produce(unsigned char* raw, const MlpArgs& P) {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+  if (threadIdx.x != N_CONSUMER_THREADS) return;
+  const MlpSmem S = mlp_carve(raw, P);
+  const int n_trunk = trunk_chunks(P.H, P.EP, P.n_layers);
+  const int n_chunks = stream_chunks(P.H, P.EP, P.EDP, P.n_layers);
+  const uint32_t tbytes = uint32_t(KC) * P.H * 2, cbytes = tbytes / 2;
+  const char* src = reinterpret_cast<const char*>(P.staged);
+  volatile int* done = S.done;
+  int c = 0, s = 0;
+  uint32_t off = 0, ph = 0;
+  for (;;) {
+    const uint32_t empty = S.bars + 8 * (MAX_STAGES + s);
+    if (!mbar_try_wait(empty, ph ^ 1)) {
+      const long long t0 = clock64();
+      while (!mbar_try_wait(empty, ph ^ 1)) {
+        if (*done) return;
+        if (clock64() - t0 > WAIT_LIMIT_CYCLES) __trap();
+      }
+    }
+    const uint32_t bytes = c < n_trunk ? tbytes : cbytes;
+    const uint32_t full = S.bars + 8 * s;
+    mbar_expect_tx(full, bytes);
+    bulk_load(S.ring + s * tbytes, src + off, bytes, full);
+    off += bytes;
+    if (++c == n_chunks) { c = 0; off = 0; }
+    if (++s == P.NS) { s = 0; ph ^= 1; }
+  }
+}
+
+// The thread's warpgroup, warp-uniform as far as the compiler can tell.
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, threadIdx.x / WG_THREADS, 0);
+}
+
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+}
+
+// A consumer's view of the ring: the next stage to take and its phase.
+struct Pipe {
+  uint32_t ring, bars, sbytes;
+  int NS, s;
+  uint32_t ph;
+  __device__ Pipe(const MlpSmem& S, const MlpArgs& P)
+      : ring(S.ring), bars(S.bars), sbytes(uint32_t(KC) * P.H * 2), NS(P.NS),
+        s(0), ph(0) {}
+  // Wait for the next stage; → its shared address (stage index in st).
+  __device__ __forceinline__ uint32_t acquire(int& st) {
+    mbar_wait(bars + 8 * s, ph);
+    st = s;
+    const uint32_t b = ring + s * sbytes;
+    if (++s == NS) { s = 0; ph ^= 1; }
+    return b;
+  }
+  // After this warp's wgmmas on stage st have completed: lane 0 arrives. A
+  // predicated instruction, not a branch, so that the wgmmas around it stay
+  // in warpgroup-uniform code.
+  __device__ __forceinline__ void release(int st) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.eq.u32 p, %1, 0;\n"
+        "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+        :: "r"(bars + 8 * (MAX_STAGES + st)), "r"(threadIdx.x & 31) : "memory");
   }
 };
 
-__device__ inline MlpSmem carve(unsigned char* base, const MlpSmemLayout& L) {
-  MlpSmem s;
-  s.h0 = reinterpret_cast<bf16*>(base + L.h0);
-  s.h1 = reinterpret_cast<bf16*>(base + L.h1);
-  s.enc = reinterpret_cast<bf16*>(base + L.enc);
-  s.ed = reinterpret_cast<bf16*>(base + L.ed);
-  s.scratch = reinterpret_cast<float*>(base + L.scratch);
-  s.sigma = reinterpret_cast<float*>(base + L.sigma);
-  s.rgb = reinterpret_cast<float*>(base + L.rgb);
-  return s;
+// Consumer thread 0, after its last pass: wait until the producer's last
+// copies (the next NS stages) have landed, then let it stop.
+__device__ inline void mlp_drain(const MlpSmem& S, Pipe& pipe) {
+  if (threadIdx.x != 0) return;
+  for (int i = 0; i < pipe.NS; ++i) {
+    int st;
+    pipe.acquire(st);
+  }
+  *reinterpret_cast<volatile int*>(S.done) = 1;
 }
 
-inline MlpArgs make_mlp_args(const void* wpack, const long long* offsets, int H,
-                             int EP, int ED, int n_layers, int skip_pos) {
+// ---- one warpgroup's 64 rows through the MLP ----
+
+// acc (64 x N) = [h (64 x H, registers) if REG] @ W + A (64 x 64*n_smem,
+// shared at a_smem) @ W', the weight chunks taken from the ring in order.
+// acc and h point into the caller's register arrays (constant indices only).
+template <int N, int H, bool REG>
+__device__ __forceinline__ void mma_layer(float* acc, uint32_t* h, uint32_t a_smem,
+                                          int n_smem, Pipe& P) {
+  wgmma_fence();
+  int prev = -1, scale = 0;
+  if (REG) {
+#pragma unroll
+    for (int c = 0; c < H / KC; ++c) {
+      int st;
+      const uint64_t db = sdesc(P.acquire(st));
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        const int t = 4 * ((KC / 16) * c + kk);
+        Wgmma<N>::rs(acc, h[t], h[t + 1], h[t + 2], h[t + 3], db + 2 * kk, scale);
+        scale = 1;
+      }
+      wgmma_commit();
+      if (c > 0) {
+        wgmma_wait<1>();
+        P.release(prev);
+      }
+      prev = st;
+    }
+  }
+  for (int c = 0; c < n_smem; ++c) {
+    int st;
+    const uint64_t db = sdesc(P.acquire(st));
+    const uint64_t da = sdesc(a_smem + c * A_CHUNK_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      Wgmma<N>::ss(acc, da + 2 * kk, db + 2 * kk, scale);
+      scale = 1;
+    }
+    wgmma_commit();
+    if (REG || c > 0) {
+      wgmma_wait<1>();
+      P.release(prev);
+    }
+    prev = st;
+  }
+  wgmma_wait<0>();
+  P.release(prev);
+  fence_regs<N / 2>(acc);
+  fence_regs<H / 4>(h);
+}
+
+// h = bf16(act(acc + bias)) in place of the next layer's A fragments: the
+// accumulator's n8 group j holds (row r, cols 8j+2q, +1) in acc[4j], acc[4j+1]
+// and (row r+8, same cols) in acc[4j+2], acc[4j+3] (r = 16*warp + lane/4,
+// q = lane%4); h[4t..4t+3] is then the A fragment of k16 step t.
+template <int N, bool RELU>
+__device__ __forceinline__ void epilogue(const float* acc, uint32_t* h,
+                                         const bf16* bias) {
+  const int c2 = 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + 8 * j + c2));
+    const float y0 = acc[4 * j] + b.x, y1 = acc[4 * j + 1] + b.y;
+    const float y2 = acc[4 * j + 2] + b.x, y3 = acc[4 * j + 3] + b.y;
+    if (RELU) {
+      h[2 * j] = pack_bf16_relu(y0, y1);
+      h[2 * j + 1] = pack_bf16_relu(y2, y3);
+    } else {
+      h[2 * j] = pack_bf16(y0, y1);
+      h[2 * j + 1] = pack_bf16(y2, y3);
+    }
+  }
+}
+
+// Rows r and r+8 of h (64 x N bf16, registers) dotted with w (N), fp32; the
+// four lanes of a quad hold a row between them.
+template <int N>
+__device__ __forceinline__ void row_dots(const uint32_t* h, const bf16* w, float& s0,
+                                         float& s1) {
+  const int c2 = 2 * (threadIdx.x & 3);
+  s0 = 0.0f;
+  s1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 ww =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + 8 * j + c2));
+    const float2 a = unpack_bf16(h[2 * j]), b = unpack_bf16(h[2 * j + 1]);
+    s0 = fmaf(a.y, ww.y, fmaf(a.x, ww.x, s0));
+    s1 = fmaf(b.y, ww.y, fmaf(b.x, ww.x, s1));
+  }
+#pragma unroll
+  for (int m = 1; m < 4; m <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, m);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, m);
+  }
+}
+
+// Warpgroup wg's 64 rows, whose encodings the caller has put in S.enc[wg] and
+// S.ed[wg] (swizzled, then fence_async_smem and wg_sync), through the whole
+// MLP: raw r, g, b and sigma logits to S.out[wg] (64 x 4). The caller
+// synchronises the warpgroup before reading them.
+template <int H>
+__device__ __forceinline__ void mlp_pass(const MlpArgs& P, const MlpSmem& S, int wg,
+                                         Pipe& pipe) {
+  const PrmOffsets o = prm_offsets(H, P.n_layers);
+  const bf16* prm = S.prm;
+  const uint32_t enc = smem_addr(S.enc[wg]), ed = smem_addr(S.ed[wg]);
+  const int ke = __shfl_sync(0xffffffffu, P.EP / KC, 0);
+  const int kd = __shfl_sync(0xffffffffu, P.EDP / KC, 0);
+  float acc[H / 2];
+  uint32_t h[H / 4];
+  mma_layer<H, H, false>(acc, h, enc, ke, pipe);
+  epilogue<H, true>(acc, h, prm + o.b0);
+  // One loop body for the mid layers and the skip layer (which adds the enc
+  // chunks), its bounds read through shuffles: code the compiler can see is
+  // warp-uniform, so that it keeps the wgmmas asynchronous.
+  const int n_layers = __shfl_sync(0xffffffffu, P.n_layers, 0);
+  const int skip = __shfl_sync(0xffffffffu, P.skip_pos, 0);
+  for (int l = 1; l < n_layers; ++l) {
+    const bool is_skip = l == skip;
+    mma_layer<H, H, true>(acc, h, enc, is_skip ? ke : 0, pipe);
+    epilogue<H, true>(acc, h, prm + (is_skip ? o.bskip : o.b_mid + H * (l - 1 - (l > skip))));
+  }
+  const int lane = threadIdx.x & 31;
+  const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  float* out = S.out[wg];
+  {
+    // sigma now, so that no register holds it through the last two layers
+    float sg0, sg1;
+    row_dots<H>(h, prm + o.w_sig, sg0, sg1);
+    if ((lane & 3) == 0) {
+      const float bs = __bfloat162float(prm[o.b_sig]);
+      out[r * 4 + 3] = sg0 + bs;
+      out[(r + 8) * 4 + 3] = sg1 + bs;
+    }
+  }
+  mma_layer<H, H, true>(acc, h, 0, 0, pipe);            // feature, no activation
+  epilogue<H, false>(acc, h, prm + o.b_feat);
+  // the colour head (width H/2) in the first halves of the same registers
+  mma_layer<H / 2, H, true>(acc, h, ed, kd, pipe);
+  epilogue<H / 2, true>(acc, h, prm + o.bc1);
+  float rgb[3][2];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    row_dots<H / 2>(h, prm + o.wc2t + c * (H / 2), rgb[c][0], rgb[c][1]);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float b = __bfloat162float(prm[o.bc2 + c]);
+      out[r * 4 + c] = rgb[c][0] + b;
+      out[(r + 8) * 4 + c] = rgb[c][1] + b;
+    }
+  }
+}
+
+// ---- host side ----
+
+// The shapes the kernels take: hidden width 128 or 256 (one accumulator of
+// at most 256 columns; ops/fused_mlp.py raises for the others on CUDA), EP a
+// multiple of 64, ED of 16, one skip layer inside the trunk.
+inline bool mlp_shape_ok(int H, int EP, int ED, int n_layers, int skip_pos) {
+  return (H == 128 || H == 256) && EP > 0 && EP % KC == 0 && ED > 0 &&
+         ED % 16 == 0 && n_layers >= 3 && skip_pos > 0 && skip_pos < n_layers;
+}
+
+inline MlpArgs make_mlp_args(const void* wpack, const long long* offsets,
+                             const void* staged, int H, int EP, int ED,
+                             int n_layers, int skip_pos) {
   MlpArgs a;
   const bf16* base = static_cast<const bf16*>(wpack);
   for (int i = 0; i < N_FIELDS; ++i) a.p[i] = base + offsets[i];
-  a.H = H; a.EP = EP; a.ED = ED; a.n_layers = n_layers; a.skip_pos = skip_pos;
+  a.staged = static_cast<const bf16*>(staged);
+  a.H = H; a.EP = EP; a.ED = ED; a.EDP = (ED + KC - 1) / KC * KC;
+  a.n_layers = n_layers; a.skip_pos = skip_pos; a.NS = 0;
   return a;
 }
 
-// The layers wmma can run: H a multiple of 64, EP and ED multiples of 16
-// (ops/fused_mlp.py:fusable and _enc_pads guarantee both).
-inline bool mlp_shape_ok(int H, int EP, int ED, int n_layers, int skip_pos) {
-  return H > 0 && H % 64 == 0 && EP % 16 == 0 && ED % 16 == 0 &&
-         n_layers >= 3 && skip_pos > 0 && skip_pos < n_layers;
-}
-
-using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-
-// acc[TILE_M x 16*CF] += A[TILE_M x K] (shared, row stride lda) @
-//                        W[K x ldw] (global, row-major) columns [c0, c0+16*CF)
-template <int CF>
-__device__ __forceinline__ void mma_accumulate(FragAcc (&acc)[M_FRAGS][CF],
-                                               const bf16* A, int lda, int K,
-                                               const bf16* __restrict__ W,
-                                               int ldw, int c0) {
-  for (int k = 0; k < K; k += 16) {
-    FragB b[CF];
-#pragma unroll
-    for (int j = 0; j < CF; ++j)
-      wmma::load_matrix_sync(b[j], W + size_t(k) * ldw + c0 + 16 * j, ldw);
-#pragma unroll
-    for (int i = 0; i < M_FRAGS; ++i) {
-      FragA a;
-      wmma::load_matrix_sync(a, A + size_t(16 * i) * lda + k, lda);
-#pragma unroll
-      for (int j = 0; j < CF; ++j) wmma::mma_sync(acc[i][j], a, b[j], acc[i][j]);
+// The most weight stages (2..MAX_STAGES) that fit in shared memory beside
+// the rest; → the block's dynamic shared memory, 0 if not even two fit.
+inline size_t plan_stages(MlpArgs& a, size_t extra_bytes) {
+  for (int ns = MAX_STAGES; ns >= 2; --ns) {
+    const MlpLayout L(a.H, a.EP, a.EDP, a.n_layers, ns, extra_bytes);
+    if (L.total <= SMEM_LIMIT) {
+      a.NS = ns;
+      return L.total;
     }
   }
+  return 0;
 }
 
-// out[TILE_M x N] = act(A1 @ W1 + A2 @ W2 + bias) in bf16, fp32 inside.
-// Warp w owns column chunks w*CW, w*CW + 4*CW, ... (CW = 16*CF); A2/W2 is the
-// optional second operand pair (K2 = 0 to skip) of the skip layer and the
-// colour head. Both W1 and W2 are row-major with row length N.
-template <int CF>
-__device__ void tile_layer(const bf16* A1, int lda1, int K1, const bf16* W1,
-                           const bf16* A2, int lda2, int K2, const bf16* W2,
-                           int N, const bf16* __restrict__ bias, bool relu,
-                           bf16* out, int ldo, float* scratch) {
-  constexpr int CW = 16 * CF;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* ws = scratch + warp * 256;
-  for (int c0 = warp * CW; c0 < N; c0 += N_WARPS * CW) {
-    FragAcc acc[M_FRAGS][CF];
-#pragma unroll
-    for (int i = 0; i < M_FRAGS; ++i)
-#pragma unroll
-      for (int j = 0; j < CF; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-    mma_accumulate<CF>(acc, A1, lda1, K1, W1, N, c0);
-    if (K2 > 0) mma_accumulate<CF>(acc, A2, lda2, K2, W2, N, c0);
-
-    const int r = lane >> 1, cc = (lane & 1) * 8;
-#pragma unroll
-    for (int i = 0; i < M_FRAGS; ++i) {
-#pragma unroll
-      for (int j = 0; j < CF; ++j) {
-        wmma::store_matrix_sync(ws, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int col = c0 + 16 * j + cc;
-        __align__(16) bf16 v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          float y = ws[r * 16 + cc + e] + __bfloat162float(bias[col + e]);
-          if (relu) y = fmaxf(y, 0.0f);
-          v[e] = __float2bfloat16_rn(y);
-        }
-        *reinterpret_cast<uint4*>(out + size_t(16 * i + r) * ldo + col) =
-            *reinterpret_cast<const uint4*>(v);
-        __syncwarp();
-      }
-    }
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
   }
+  return n;
 }
 
-__device__ __forceinline__ float warp_sum(float s) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
-  return s;
-}
-
-// out[r*stride + c] = X[r, :K] . Wt[c, :K] + b[c] for c < C, fp32 accumulate:
-// the sigma head (C = 1, stride 1) and the rgb head (C = 3, stride 3).
-__device__ void head_dots(const bf16* X, int ldx, int K,
-                          const bf16* __restrict__ Wt,
-                          const bf16* __restrict__ b, int C, float* out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int ROWS = TILE_M / N_WARPS;
-  for (int rr = 0; rr < ROWS; ++rr) {
-    const int r = warp * ROWS + rr;
-    for (int c = 0; c < C; ++c) {
-      float s = 0.0f;
-      for (int k = lane; k < K; k += 32)
-        s += __bfloat162float(X[size_t(r) * ldx + k]) *
-             __bfloat162float(Wt[size_t(c) * K + k]);
-      s = warp_sum(s);
-      if (lane == 0) out[r * C + c] = s + __bfloat162float(b[c]);
-    }
-  }
-}
-
-// The whole MLP on the tile whose encoded inputs are in S.enc / S.ed (the
-// caller fills them and synchronises). Leaves raw logits in S.sigma
-// (TILE_M) and S.rgb (TILE_M x 3) and synchronises before returning.
-__device__ void mlp_tile(const MlpArgs& P, const MlpSmem& S) {
-  const int H = P.H, ldh = H + ROW_PAD;
-  const int lde = P.EP + ROW_PAD, ldd = P.ED + ROW_PAD;
-  bf16* cur = S.h0;
-  bf16* nxt = S.h1;
-
-  tile_layer<4>(S.enc, lde, P.EP, P.p[W0], nullptr, 0, 0, nullptr, H, P.p[B0],
-                true, cur, ldh, S.scratch);
-  __syncthreads();
-  int mid = 0;
-  for (int l = 1; l < P.n_layers; ++l) {
-    if (l == P.skip_pos) {
-      tile_layer<4>(cur, ldh, H, P.p[WSKIP_H], S.enc, lde, P.EP, P.p[WSKIP_E],
-                    H, P.p[BSKIP], true, nxt, ldh, S.scratch);
-    } else {
-      tile_layer<4>(cur, ldh, H, P.p[W_MID] + size_t(mid) * H * H, nullptr, 0,
-                    0, nullptr, H, P.p[B_MID] + size_t(mid) * H, true, nxt, ldh,
-                    S.scratch);
-      ++mid;
-    }
-    __syncthreads();
-    bf16* t = cur; cur = nxt; nxt = t;
-  }
-  // feature (no activation, rounded to bf16) and sigma, both from h = cur
-  tile_layer<4>(cur, ldh, H, P.p[W_FEAT], nullptr, 0, 0, nullptr, H,
-                P.p[B_FEAT], false, nxt, ldh, S.scratch);
-  head_dots(cur, ldh, H, P.p[W_SIG], P.p[B_SIG], 1, S.sigma);
-  __syncthreads();
-  // colour head on [feature, enc_dir]: rows [0, H) and [H, H+ED) of wc1
-  tile_layer<2>(nxt, ldh, H, P.p[WC1], S.ed, ldd, P.ED,
-                P.p[WC1] + size_t(H) * (H / 2), H / 2, P.p[BC1], true, cur, ldh,
-                S.scratch);
-  __syncthreads();
-  head_dots(cur, ldh, H / 2, P.p[WC2T], P.p[BC2], 3, S.rgb);
-  __syncthreads();
+// Set the kernel's shared memory and check that its register allocation
+// leaves setmaxnreg room to hand the consumers CONSUMER_REGS (a block's pool
+// is its threads x the registers the compiler gave each at entry): a
+// setmaxnreg.inc the pool cannot serve would wait for ever.
+template <class Kernel>
+inline cudaError_t prepare_kernel(Kernel kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  const int per_thread = (fa.numRegs + 7) & ~7;
+  if (per_thread * N_THREADS <
+      CONSUMER_REGS * N_CONSUMER_THREADS + PRODUCER_REGS * WG_THREADS)
+    return cudaErrorInvalidConfiguration;
+  return cudaSuccess;
 }
 
 }  // namespace nerf
-
-extern "C" const char* nerf_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

@@ -3,9 +3,12 @@
 Replaces the TPU kernel ``nerf_sandbox_tpu/ops/fused_mlp.py:fused_nerf_apply``
 (Pallas body ``_kernel``). Bound on the H100: 1.19 MFLOP of bf16 tensor-core
 work per row at the vanilla widths against ~190 bytes of HBM traffic, so
-the tensor cores set the bound; the kernel keeps each 64-row tile's
-activations in shared memory and reads the ~1.2 MB of packed weights from L2
-(design notes in ``csrc/mlp_tile.cuh``).
+the tensor cores set the bound. The kernel runs ``wgmma`` on two warpgroups
+of 64 rows that share each weight stage, so the ~1.2 MB of weights come from
+L2 once per ``TILE_M`` = 128 rows; a producer warp streams them into shared
+memory as one bulk copy per stage, from the buffer :func:`stage_weights`
+lays out (design notes in ``csrc/mlp_tile.cuh``). Hidden activations stay
+in registers between layers.
 
 Rounding points are those of the TPU kernel: bf16 operands, fp32
 accumulation, fp32 add of the bf16-rounded bias, relu then a bf16 cast
@@ -29,7 +32,9 @@ from nerf_sandbox_tpu_torch.device import resolve_device
 from nerf_sandbox_tpu_torch.models.mlp import NeRFConfig, NeRFMLP
 from nerf_sandbox_tpu_torch.ops import cuda_build
 
-TILE_M = 64                  # sample rows per CUDA block (csrc/mlp_tile.cuh)
+TILE_M = 128                 # rows per weight fetch (csrc/mlp_tile.cuh)
+KC = 64                      # K rows of one weight stage (csrc/mlp_tile.cuh)
+KERNEL_HIDDEN = (128, 256)   # hidden widths the CUDA kernels take
 PLAIN_ROWS = 1 << 18         # row chunk of the plain version (bounds memory)
 _ALIGN = 64                  # packed arrays start on 128-byte boundaries
 
@@ -67,12 +72,15 @@ def _pack_shapes(cfg: NeRFConfig) -> dict:
 class PackedMLP(NamedTuple):
     """The MLP's weights as one bf16 buffer (the kernels' argument) plus a
     named view of each array in it. Weights are (in, out), except the
-    colour output ``wc2t`` (3, H/2)."""
+    colour output ``wc2t`` (3, H/2). ``staged`` is the weight stream the
+    kernels copy into shared memory (:func:`stage_weights`), derived from
+    ``views``."""
 
     cfg: NeRFConfig
     flat: torch.Tensor
     offsets: tuple
     views: dict
+    staged: torch.Tensor
 
 
 def pack_nerf_params(model: NeRFMLP) -> PackedMLP:
@@ -122,7 +130,65 @@ def pack_nerf_params(model: NeRFMLP) -> PackedMLP:
         views["bc1"].copy_(model.color_fc.bias)
         views["wc2t"].copy_(model.color_out.weight)
         views["bc2"].copy_(model.color_out.bias)
-    return PackedMLP(cfg, flat, tuple(offsets), views)
+    return PackedMLP(cfg, flat, tuple(offsets), views, stage_weights(cfg, views))
+
+
+def _stream_arrays(cfg: NeRFConfig, views: dict) -> tuple[list, list]:
+    """The (K, N) weight arrays in the order the kernels' MLP reads them:
+    the trunk's (W0, then per layer W_mid or W_skip_h, W_skip_e, then
+    W_feat), then the colour head's (W_c1's feature rows, its enc_dir rows)."""
+    H = cfg.hidden_dim
+    trunk, mid = [views["w0"]], 0
+    for layer in range(1, cfg.n_layers):
+        if layer == cfg.skip_pos:
+            trunk += [views["wskip_h"], views["wskip_e"]]
+        else:
+            trunk.append(views["w_mid"][mid])
+            mid += 1
+    trunk.append(views["w_feat"])
+    return trunk, [views["wc1"][:H], views["wc1"][H:]]
+
+
+def _swizzle_index(n: int, device) -> torch.Tensor:
+    """16-byte unit u of row r of a 128-byte row sits at u ^ (r % 8) (the
+    128-byte swizzle wgmma reads); the map is its own inverse."""
+    u = torch.arange(8, device=device)
+    r = torch.arange(n, device=device)
+    return u[None, :] ^ (r[:, None] % 8)
+
+
+def _swizzle_rows(t: torch.Tensor) -> torch.Tensor:
+    """(C, N, 64) → the same with each row's 8 units swizzled."""
+    C, N, _ = t.shape
+    idx = _swizzle_index(N, t.device)[None, :, :, None].expand(C, N, 8, 8)
+    return t.reshape(C, N, 8, 8).gather(2, idx).reshape(C, N, KC)
+
+
+def stage_weights(cfg: NeRFConfig, views: dict) -> torch.Tensor:
+    """The weight stream of the CUDA kernels: each (K, N) array of
+    :func:`_stream_arrays`, K zero-padded to a multiple of 64, cut into
+    64-row chunks, each chunk transposed to N rows of 64 K values (K-major)
+    and swizzled, so that one chunk is one contiguous bulk copy in the
+    layout wgmma reads. → a flat bf16 tensor (chunks back to back)."""
+    trunk, colour = _stream_arrays(cfg, views)
+    parts = []
+    for w in trunk + colour:
+        K, N = w.shape
+        kp = -(-K // KC) * KC
+        wp = torch.zeros((kp, N), dtype=torch.bfloat16, device=w.device)
+        wp[:K] = w
+        chunks = wp.reshape(kp // KC, KC, N).transpose(1, 2)
+        parts.append(_swizzle_rows(chunks).reshape(-1))
+    return torch.cat(parts)
+
+
+def check_kernel_shape(cfg: NeRFConfig) -> None:
+    """Raise for a (fusable) MLP the CUDA kernels do not take, never falling
+    back: their accumulator holds at most 256 columns, so hidden widths are
+    128 or 256."""
+    if cfg.hidden_dim not in KERNEL_HIDDEN:
+        raise ValueError(f"the CUDA kernels take hidden widths {KERNEL_HIDDEN}, "
+                         f"not {cfg.hidden_dim}")
 
 
 def as_packed(model) -> PackedMLP:
@@ -190,6 +256,7 @@ def offsets_arg(packed: PackedMLP):
     return (ctypes.c_longlong * len(packed.offsets))(*packed.offsets)
 
 
+
 def _launch(packed: PackedMLP, enc_pos: torch.Tensor,
             enc_dir: torch.Tensor) -> torch.Tensor:
     """Launch K1 on the current stream (inputs on one CUDA device)."""
@@ -199,10 +266,11 @@ def _launch(packed: PackedMLP, enc_pos: torch.Tensor,
         raise ValueError(f"fused_nerf_apply: expected (Q,{cfg.enc_pos_dim}) and "
                          f"(Q,{cfg.enc_dir_dim}), got {tuple(enc_pos.shape)} "
                          f"and {tuple(enc_dir.shape)}")
-    for t in (enc_pos, enc_dir, packed.flat):
+    for t in (enc_pos, enc_dir, packed.flat, packed.staged):
         if t.device != enc_pos.device or t.device.type != "cuda":
             raise ValueError("fused_nerf_apply: all tensors must be on one "
                              "CUDA device")
+    check_kernel_shape(cfg)
     ep = enc_pos.to(torch.bfloat16).contiguous()
     ed = enc_dir.to(torch.bfloat16).contiguous()
     out = torch.empty((Q, 4), dtype=torch.float32, device=ep.device)
@@ -210,12 +278,14 @@ def _launch(packed: PackedMLP, enc_pos: torch.Tensor,
     lib = cuda_build.load("fused_mlp")
     fn = lib.nerf_fused_mlp
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(ep.device).cuda_stream
-    err = fn(_ptr(ep), _ptr(ed), _ptr(packed.flat), offsets_arg(packed), Q,
-             cfg.enc_pos_dim, cfg.enc_dir_dim, cfg.hidden_dim, ep_pad, ed_pad,
-             cfg.n_layers, cfg.skip_pos, _ptr(out), ctypes.c_void_p(stream))
+    err = fn(_ptr(ep), _ptr(ed), _ptr(packed.flat), offsets_arg(packed),
+             _ptr(packed.staged), Q, cfg.enc_pos_dim, cfg.enc_dir_dim,
+             cfg.hidden_dim, ep_pad, ed_pad, cfg.n_layers, cfg.skip_pos,
+             _ptr(out), ctypes.c_void_p(stream))
     cuda_build.check(lib, err, "fused_mlp kernel launch")
     fused_nerf_apply.launches += 1
     return out

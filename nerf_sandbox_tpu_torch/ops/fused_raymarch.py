@@ -14,11 +14,14 @@ attenuated by ``exp(-½f²σ²)``] → the K1 MLP → sigmoid rgb, relu/softplus
 Bound on the H100: the MLP's ~1.2 MFLOP of bf16 work per sample against
 about 10 bytes of HBM traffic per sample, so the tensor cores set the bound:
 one 16384×192 fine tile is 3.73 TFLOP (3.76 at the k-planes width 71), 3.8
-ms at 989 TFLOP/s. Design (``csrc/fused_raymarch.cu``): one block owns 16
-rays and loops over their samples 4 at a time as 64-row MLP tiles, with the
-per-ray accumulators in registers — the TPU's sequential-grid carry becomes a
-loop inside the block — and ERT ends a block once all its rays have T < eps.
-The encoder and the contraction are template parameters of the kernel.
+ms at 989 TFLOP/s. Design (``csrc/fused_raymarch.cu``): one persistent block
+per SM walks groups of 32 rays; each of its two consumer warpgroups owns 16
+rays and loops over their samples 4 at a time, 64 rows per pass of the
+``wgmma`` MLP (both share each weight stage: 128 rows per fetch from L2),
+with the per-ray accumulators in registers — the TPU's sequential-grid carry
+becomes a loop inside the block — and ERT ends a group once all its rays
+have T < eps. The encoder, the contraction and the hidden width (128 or
+256) are template parameters of the kernel.
 
 :func:`fused_raymarch_plain` is the same function in plain PyTorch with the
 kernel's bf16 rounding points; it marches every sample (ERT changes each
@@ -48,13 +51,14 @@ from nerf_sandbox_tpu_torch.device import resolve_device
 from nerf_sandbox_tpu_torch.models.mlp import NeRFMLP
 from nerf_sandbox_tpu_torch.ops import cuda_build
 from nerf_sandbox_tpu_torch.ops.fused_mlp import (
-    PLAIN_ROWS, PackedMLP, _enc_pads, _ptr, as_packed, mlp_rows_plain,
-    offsets_arg, pad_cols_bf16)
+    PLAIN_ROWS, PackedMLP, _enc_pads, _ptr, as_packed, check_kernel_shape,
+    mlp_rows_plain, offsets_arg, pad_cols_bf16)
 from nerf_sandbox_tpu_torch.ops.kplanes_encode import (
     KP_C_ARGTYPES, PackedKPlanes, check_kernel_shapes, kp_c_args,
     kplanes_encode_plain, pack_kplanes)
 
-RAYS_PER_BLOCK = 16          # csrc/fused_raymarch.cu: RAYS
+RAYS_PER_GROUP = 32          # csrc/fused_raymarch.cu: RAYS
+SAMPLES_PER_PASS = 4         # csrc/fused_raymarch.cu: SPC
 MAX_BANDS = 32               # csrc/fused_raymarch.cu: MAX_BANDS
 ROUTES = ("freq", "kplanes", "ipe", "contract", "tfold")
 
@@ -166,27 +170,30 @@ def fused_raymarch_plain(packed: PackedMLP, rays_o, rays_d_unit, z_vals, dt,
     return torch.cat(raws), torch.cat(ws)
 
 
-def _launch(packed: PackedMLP, rays_o, rays_d_unit, z_vals, dt, ray_norms,
+def _launch(packed: PackedMLP, rays_o, rays_d_unit, z_vals, ray_norms,
             enc_dir, bands: np.ndarray, *, pos_include_input: bool,
-            sigma_activation: str, white_bkgd: bool, ert_eps: float,
-            contract: bool, kp: PackedKPlanes | None, radii):
-    """Launch K2 on the current stream (inputs on one CUDA device)."""
+            sigma_activation: str, white_bkgd: bool, infinite_last_bin: bool,
+            ert_eps: float, contract: bool, kp: PackedKPlanes | None, radii):
+    """Launch K2 on the current stream (inputs on one CUDA device); the
+    kernel forms the deltas of :func:`_deltas` itself."""
     cfg = packed.cfg
     B, N = z_vals.shape
     dev = z_vals.device
     f32 = [t.to(torch.float32).contiguous()
            for t in (rays_o, rays_d_unit, ray_norms.reshape(B), enc_dir,
-                     z_vals, dt)]
+                     z_vals)]
     if radii is not None:
         radii = radii.contiguous()
-    on_card = (f32 + [packed.flat] + ([kp.flat] if kp is not None else [])
+    on_card = (f32 + [packed.flat, packed.staged]
+               + ([kp.flat] if kp is not None else [])
                + ([radii] if radii is not None else []))
     if any(t.device != dev or t.device.type != "cuda" for t in on_card):
         raise ValueError("fused_raymarch: all tensors must be on one CUDA device")
-    ro, rd, rn, ed, z, d = f32
+    ro, rd, rn, ed, z = f32
     if ro.shape != (B, 3) or rd.shape != (B, 3) or ed.shape != (B, cfg.enc_dir_dim):
         raise ValueError("fused_raymarch: bad ray shapes "
                          f"{tuple(ro.shape)}, {tuple(rd.shape)}, {tuple(ed.shape)}")
+    check_kernel_shape(cfg)
     ep_pad, ed_pad = _enc_pads(cfg)
     if kp is not None:
         check_kernel_shapes(kp, ep_pad)
@@ -205,17 +212,19 @@ def _launch(packed: PackedMLP, rays_o, rays_d_unit, z_vals, dt, ray_norms,
     out_w = torch.empty((B, N), dtype=torch.float32, device=dev)
     lib = cuda_build.load("fused_raymarch")
     fn = lib.nerf_fused_raymarch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_float)]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.POINTER(ctypes.c_float)]
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-                   + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 11
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+                   + [ctypes.c_int] * 11
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
                    + KP_C_ARGTYPES + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(_ptr(ro), _ptr(rd), _ptr(rn), _ptr(ed), _ptr(z), _ptr(d),
+    err = fn(_ptr(ro), _ptr(rd), _ptr(rn), _ptr(ed), _ptr(z), int(infinite_last_bin),
              (ctypes.c_float * max(1, bands.size))(*bands.tolist()),
              int(bands.size), int(pos_include_input), _ptr(packed.flat),
-             offsets_arg(packed), B, N, cfg.enc_dir_dim, cfg.hidden_dim,
+             offsets_arg(packed), _ptr(packed.staged), B, N, cfg.enc_dir_dim,
+             cfg.hidden_dim,
              ep_pad, ed_pad, cfg.n_layers, cfg.skip_pos,
              int(sigma_activation == "softplus"), int(white_bkgd),
              int(ert_eps > 0.0),
@@ -294,16 +303,17 @@ def fused_raymarch(model: NeRFMLP | PackedMLP, rays_o, rays_d_unit, z_vals, ray_
         radii = radii.reshape(B)
     bands = np.asarray([] if pos_bands is None else pos_bands,
                        np.float32).reshape(-1)
-    dt = _deltas(z_vals, ray_norms, infinite_last_bin)
     kw = dict(pos_include_input=pos_include_input,
               sigma_activation=sigma_activation, white_bkgd=white_bkgd,
               contract=bool(scene_contraction), kp=kp, radii=radii)
     if dev.type == "cpu":
+        dt = _deltas(z_vals, ray_norms, infinite_last_bin)
         raw, w = fused_raymarch_plain(packed, rays_o, rays_d_unit, z_vals, dt,
                                       ray_norms, enc_dir, bands, **kw)
     else:
-        raw, w = _launch(packed, rays_o, rays_d_unit, z_vals, dt, ray_norms,
-                         enc_dir, bands, ert_eps=ert_eps, **kw)
+        raw, w = _launch(packed, rays_o, rays_d_unit, z_vals, ray_norms,
+                         enc_dir, bands, infinite_last_bin=infinite_last_bin,
+                         ert_eps=ert_eps, **kw)
     return fixup_outputs(raw, w)
 
 

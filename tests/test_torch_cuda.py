@@ -71,8 +71,9 @@ def _rays(b, n, seed, dev):
 
 
 @pytest.mark.parametrize("cfg", [VANILLA, SMALL], ids=["8x256", "3x128"])
-@pytest.mark.parametrize("q", [1, 63, 65, 1000, 70000])
+@pytest.mark.parametrize("q", [1, 63, 65, 127, 129, 255, 257, 1000, 70000])
 def test_k1_matches_plain(cuda, cfg, q):
+    """q on both sides of the 128-row tile (two warpgroups of 64 rows)."""
     m = _model(cfg, 0, cuda)
     ep, ed = _enc(q, q, cuda)
     before = fm.fused_nerf_apply.launches
@@ -99,6 +100,23 @@ def test_k1_rejects_bad_inputs(cuda):
         fm.fused_nerf_apply(m, ep[:, :60], ed)
     with pytest.raises(ValueError, match="model is on"):
         fm.fused_nerf_apply(_model(VANILLA, 0, "cpu"), ep, ed)
+
+
+def test_hidden_width_the_kernels_do_not_take_raises(cuda):
+    """A fusable MLP wider than one 256-column accumulator raises on CUDA (it
+    never falls back to the plain version)."""
+    wide = NeRFConfig(63, 27, n_layers=3, hidden_dim=384, skip_pos=1)
+    assert fm.fusable(wide)
+    m = _model(wide, 0, cuda)
+    ep, ed = _enc(8, 0, cuda)
+    k1, k2 = fm.fused_nerf_apply.launches, fr.fused_raymarch.launches
+    with pytest.raises(ValueError, match="hidden widths"):
+        fm.fused_nerf_apply(m, ep, ed)
+    o, d, nr, z = _rays(8, 16, 0, cuda)
+    pos_b, dir_b = vanilla_encoders()
+    with pytest.raises(ValueError, match="hidden widths"):
+        fr.fused_raymarch(m, o, d, z, nr, positional_encoding(d, dir_b), pos_b)
+    assert fm.fused_nerf_apply.launches == k1 and fr.fused_raymarch.launches == k2
 
 
 def _k2_pair(m, rays, dev, **kw):
@@ -143,6 +161,63 @@ def test_k2_matches_plain(cuda, kw, shape):
         assert torch.isfinite(g).all()
         assert float((g[off] - w[off]).abs().max()) <= tol
     assert float((got[1][:, :-1] - want[1][:, :-1]).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("encoder", ["freq", "ipe"])
+@pytest.mark.parametrize("b", [1, 33, 16385])
+def test_k2_ragged_ray_groups(cuda, encoder, b):
+    """B not a multiple of the 32-ray group nor of the 16 rays of a
+    warpgroup, N not a multiple of the 4 samples of a pass, on the frequency
+    encoder (K2) and the IPE one (K4). A finite last bin, so every ray is
+    held (no last-bin kink): comp, w and acc at 2e-2, depth as sum(w z) at
+    2e-2 x z_far (a ray with little weight has an ill-conditioned depth)."""
+    m = _model(VANILLA, 12, cuda)
+    rays = _rays(b, 63, 13, cuda)
+    if encoder == "ipe":
+        got, want, _ = _k4_pair(m, rays, _radii(b, 14, cuda), False,
+                                infinite_last_bin=False)
+    else:
+        got, want, _ = _k2_pair(m, rays, cuda, infinite_last_bin=False)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.shape[0] == b
+        assert torch.isfinite(g).all()
+    for g, w in zip(got[:3], want[:3]):
+        assert float((g - w).abs().max()) <= 2e-2
+    assert float((got[3] * got[2] - want[3] * want[2]).abs().max()) <= 2e-2 * 6.0
+
+
+@pytest.mark.parametrize("kw", [{}, {"ipe": True}], ids=["freq", "ipe"])
+def test_k2_small_model_matches_plain(cuda, kw):
+    """The 3x128 MLP (the kernels' H = 128 instantiations, skip at 2)."""
+    m = _model(SMALL, 15, cuda)
+    rays = _rays(300, 64, 16, cuda)
+    fr.reset_launches()
+    if kw:
+        got, want, off = _k4_pair(m, rays, _radii(300, 17, cuda), False)
+    else:
+        got, want, off = _k2_pair(m, rays, cuda)
+    torch.cuda.synchronize()
+    assert fr.fused_raymarch.launches == 1
+    assert int(off.sum()) >= 0.95 * 300
+    for g, w, tol in zip(got, want, (2e-2, 2e-2, 2e-2, 0.1)):
+        assert torch.isfinite(g).all()
+        assert float((g[off] - w[off]).abs().max()) <= tol
+    assert float((got[1][:, :-1] - want[1][:, :-1]).abs().max()) <= 2e-2
+
+
+def test_k2_early_termination_ragged(cuda):
+    """ERT on the dense model with B and N off the kernel's geometry: a group
+    that stops writes zero weights and the others go on."""
+    m = _model(VANILLA, 18, cuda, sigma_shift=10.0)
+    o, d, nr, z = _rays(1000, 190, 19, cuda)
+    pos_b, dir_b = vanilla_encoders()
+    ed = positional_encoding(d, dir_b)
+    full = fr.fused_raymarch(m, o, d, z, nr, ed, pos_b)
+    ert = fr.fused_raymarch(m, o, d, z, nr, ed, pos_b, ert_eps=1e-4)
+    for f, e in zip(full, ert):
+        assert float((f - e).abs().max()) <= 1e-3
+    assert float((ert[1] == 0).float().mean()) > 0.5
 
 
 def test_k2_rays_are_independent(cuda):
@@ -350,19 +425,22 @@ def _radii(b, seed, dev, hi=3e-2):
     return torch.from_numpy(rng.uniform(5e-4, hi, (b,)).astype(np.float32)).to(dev)
 
 
-def _k4_pair(m, rays, radii, contract, **kw):
+def _k4_pair(m, rays, radii, contract, infinite_last_bin=True, **kw):
     """K2's IPE instantiation (K4) against its plain version, and the rays
     off the last-bin kink (its band measured on the last sample's IPE rows
-    with K1 and its plain version)."""
+    with K1 and its plain version; every ray with a finite last bin)."""
     o, d, nr, z = rays
     pos_b, dir_b = vanilla_encoders()
     ed = positional_encoding(d, dir_b)
     got = fr.fused_raymarch(m, o, d, z, nr, ed, pos_b, ipe_radii=radii,
-                            scene_contraction=contract, **kw)
+                            scene_contraction=contract,
+                            infinite_last_bin=infinite_last_bin, **kw)
     packed = fm.pack_nerf_params(m)
     want = fr.fixup_outputs(*fr.fused_raymarch_plain(
-        packed, o, d, z, fr._deltas(z, nr, True), nr, ed, pos_b,
+        packed, o, d, z, fr._deltas(z, nr, infinite_last_bin), nr, ed, pos_b,
         contract=contract, radii=radii))
+    if not infinite_last_bin:
+        return got, want, torch.ones(z.shape[0], dtype=torch.bool, device=z.device)
     mean, var = fr.ipe_gaussians(o, d, z * nr[:, None], radii, contract)
     enc = integrated_positional_encoding(mean[:, -1], var[:, -1], pos_b)
     k_logit = fm.fused_nerf_apply(packed, enc, ed)[:, 3]

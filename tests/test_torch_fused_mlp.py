@@ -4,7 +4,10 @@ kernel itself is held against this plain version on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 
 Tolerances: 0.05 against both JAX functions (the JAX fused-MLP test's bf16
-bound); 1e-5 for padding independence (rows never mix).
+bound); 1e-5 for padding independence (rows never mix). The staged weight
+stream the CUDA kernels copy into shared memory is checked bit-exact: it
+must invert to the packed views, and its first chunk must sit where the
+kernels' wgmma descriptors read it.
 """
 
 import jax
@@ -119,3 +122,88 @@ def test_wrapper_device_rules():
     tfm.fused_nerf_apply(m, torch.from_numpy(ep), torch.from_numpy(ed),
                          device="cpu")
     assert tfm.fused_nerf_apply.launches == before   # the plain path launches nothing
+
+
+def _unstage(cfg, staged):
+    """Invert ``stage_weights``: → the (K, N) arrays of ``_stream_arrays``,
+    padding rows included (W_c1's enc_dir rows to a multiple of 64)."""
+    H, kc = cfg.hidden_dim, tfm.KC
+    ep, ed = tfm._enc_pads(cfg)
+    ks = [ep] + [k for layer in range(1, cfg.n_layers)
+                 for k in ((H, ep) if layer == cfg.skip_pos else (H,))] + [H]
+    shapes = [(k, H) for k in ks] + [(H, H // 2), (-(-ed // kc) * kc, H // 2)]
+    out, off = [], 0
+    for K, N in shapes:
+        chunks = tfm._swizzle_rows(staged[off:off + K * N].reshape(K // kc, N, kc))
+        out.append(chunks.transpose(1, 2).reshape(K, N))
+        off += K * N
+    assert off == staged.numel()
+    return out
+
+
+STAGE_CFGS = {"8x256": TCFG,
+              "3x128": tmlp.NeRFConfig(63, 27, n_layers=3, hidden_dim=128,
+                                       skip_pos=2),
+              "kplanes_ep128": tmlp.NeRFConfig(71, 27, n_layers=8, hidden_dim=256,
+                                               skip_pos=4)}
+
+
+@pytest.mark.parametrize("name", STAGE_CFGS)
+def test_staged_weights_invert_to_views(name):
+    cfg = STAGE_CFGS[name]
+    m = tmlp.NeRFMLP(cfg, generator=torch.Generator().manual_seed(5), device="cpu")
+    packed = tfm.pack_nerf_params(m)
+    trunk, colour = tfm._stream_arrays(cfg, packed.views)
+    got = _unstage(cfg, packed.staged)
+    assert len(got) == len(trunk) + len(colour)
+    for g, w in zip(got, trunk + colour):
+        k = w.shape[0]
+        assert g.dtype == torch.bfloat16 and g.shape[1] == w.shape[1]
+        assert g.shape[0] % tfm.KC == 0 and g.shape[0] - k < tfm.KC
+        assert torch.equal(g[:k], w)                  # bit-exact
+        assert not g[k:].float().any()                 # zero padding rows
+    # chunk 0 is W0[0:64, :] as H rows of 64 K values, unit u of row n at
+    # u ^ (n % 8): the 128-byte swizzle of the kernels' descriptors
+    H = cfg.hidden_dim
+    chunk = packed.staged[:tfm.KC * H].reshape(H, 8, 8)
+    n, k = torch.meshgrid(torch.arange(H), torch.arange(tfm.KC), indexing="ij")
+    phys = chunk[n, (k // 8) ^ (n % 8), k % 8]
+    assert torch.equal(phys, packed.views["w0"][:tfm.KC].T)
+    ep = tfm._enc_pads(cfg)[0]
+    n_trunk = 2 * ep // tfm.KC + cfg.n_layers * H // tfm.KC
+    n_colour = H // tfm.KC + 1
+    assert packed.staged.numel() == (n_trunk * tfm.KC * H
+                                     + n_colour * tfm.KC * (H // 2))
+
+
+def test_kernel_shape_check_names_hidden_widths():
+    tfm.check_kernel_shape(TCFG)
+    tfm.check_kernel_shape(STAGE_CFGS["3x128"])
+    wide = tmlp.NeRFConfig(63, 27, n_layers=8, hidden_dim=384, skip_pos=4)
+    assert tfm.fusable(wide)
+    with pytest.raises(ValueError, match="384"):
+        tfm.check_kernel_shape(wide)
+
+
+def test_wgmma_header_matches_its_generator():
+    """csrc/wgmma.cuh is written by csrc/gen_wgmma.py; they must not drift."""
+    import importlib.util
+    from pathlib import Path
+    csrc = Path(tfm.__file__).resolve().parent.parent / "csrc"
+    spec = importlib.util.spec_from_file_location("gen_wgmma", csrc / "gen_wgmma.py")
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    text = gen.render()
+    assert text == (csrc / "wgmma.cuh").read_text()
+    for n in (64, 128, 256):
+        assert f"m64n{n}k16.f32.bf16.bf16" in text
+
+
+def test_weight_stream_probe_finds_the_producer_copy():
+    """``probe_weight_stream`` patches the producer's bulk copy out of a copy
+    of csrc/mlp_tile.cuh; the text it replaces must be there exactly once."""
+    from pathlib import Path
+
+    from nerf_sandbox_tpu_torch import probe_weight_stream as probe
+    tile = Path(tfm.__file__).resolve().parent.parent / "csrc" / "mlp_tile.cuh"
+    assert tile.read_text().count(probe.COPY) == 1
