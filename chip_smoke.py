@@ -16,7 +16,11 @@ Phases (any failure exits non-zero):
 1. device line: the card's name and count, and ``nvidia-smi``'s name and
    power limit;
 2. build: compiles every kernel of ``nerf_sandbox_tpu_torch/csrc`` with
-   ``nvcc`` (one process per source, in parallel);
+   ``nvcc`` (one process per source, in parallel) and prints, from each
+   library's ``-Xptxas -v`` report (kept beside it, so a cached build reports
+   too), every kernel's registers, spills and wgmma-serialization notes
+   (C7510-C7520); fails on a spill anywhere, and on such a note in K1 or K2
+   at hidden width 128 or 256;
 3. K1 (fused MLP) against its plain PyTorch version at 16384x64 rows with the
    reference's 8x256 weights (``tests/golden/mlp_state.npz``), max |diff|
    <= 0.05, timed with CUDA events (median of 10 after warm-up); beside it,
@@ -32,7 +36,7 @@ Phases (any failure exits non-zero):
 4b. the 360 configuration with seeded weights, on one real fine tile of its
    frame 1 (16384 x 192): K2 with K2c + K3 against its plain version at
    phase 4's tolerances; K3's encode-only entry on the same (contracted)
-   points within one bf16 ulp; K2c alone (the frequency model, contracted)
+   points bit for bit; K2c alone (the frequency model, contracted)
    and K3t (a 4-D grid, time_res 8, time tables N(1, 0.1), folded at
    t = 0.37, finite last bin; Σw·z held at 2e-2 x far) against their plain
    versions; each timed, with its bound;
@@ -61,10 +65,22 @@ Phases (any failure exits non-zero):
    one on route ``ipe``) and one ``nerf_forward_pass(ipe=True,
    use_kernel=True)`` through K1, counted as in 5; frame 1 against the plain
    path as in 5;
+5w. hidden widths 384 and 512 (K1 and K2's wide instantiations): K1 at
+   2^20 rows of 8x384 and 8x512 skip-4 MLPs with seeded weights and one 8x512
+   Blender fine tile (phase 4's) on the frequency route, against their plain
+   versions (phase 3's and phase 4's tolerances), timed with their bounds;
+   then one 800x800 frame of the 8x512 model through ``render_pose`` (80
+   frequency launches) and each width's ``nerf_forward_pass(use_kernel=True)``
+   through K1, counted;
+5b4. the 360 configuration with 4-feature planes: K2c + K3 on phase 4b's
+   fine tile against its plain version, K3's encode-only entry bit for bit,
+   timed; one 800x800 frame through ``render_pose`` and one
+   ``nerf_forward_pass`` through K3 + K1, counted;
 7. K5, the precision probe: ``a @ b`` on the TPU probe's three shapes in
    the modes bf16, tf32, bf16x3 and fp32, each launch counted, its error
    against the fp64 oracle printed and each output held against its plain
-   version within K 2^-23 sum|a||b|; timed beside ``torch.matmul``;
+   version within K 2^-23 sum|a||b|; each shape timed in every mode beside
+   ``torch.matmul`` on the same shape;
 6. a ``{"kernels": [...]}`` JSON line with each kernel's launches on its
    path, max |diff| against its plain version, its time, the plain
    version's time, the card's bound for the same work and, where one
@@ -85,6 +101,7 @@ this script, it prints nothing on stdout and exits 2.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -251,20 +268,90 @@ def kplanes_fp32_flops(kcfg):
     return n_s * per_scale + lines + hybrid + 3 * (n_s + 1) * 8
 
 
-def ptxas_summary(log):
-    """Each compiled kernel's registers and spills, from ``-Xptxas -v``."""
+WGMMA_NOTE = re.compile(r"\((C75(?:1\d|20))\)")
+
+
+def ptxas_entries(log):
+    """Each compiled kernel of a ``-Xptxas -v`` report → {mangled name:
+    {"regs", "spill_stores", "spill_loads", "notes"}}. A wgmma note of
+    C7510-C7520 goes to the function it names, else to the entry being
+    compiled; those that say the wgmmas are serialized are the ones that cost
+    (C7519, "warpgroup.arrive is injected ...", marks the register hand-off
+    of every register-operand wgmma and serializes nothing)."""
     rows, entry, props = {}, None, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1]
-            rows[entry] = []
+            rows.setdefault(entry, dict(regs=None, spill_stores=0, spill_loads=0,
+                                        notes=[]))
         elif "Function properties for" in ln:
             props = ln.rsplit(" ", 1)[-1].strip()
         elif "spill" in ln and props == entry and entry:
-            rows[entry].append(ln.strip())
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                rows[entry]["spill_stores"] = int(m.group(1))
+                rows[entry]["spill_loads"] = int(m.group(2))
         elif "Used" in ln and "registers" in ln and entry:
-            rows[entry].append(ln.split(":", 1)[-1].strip())
-    return [f"{n}: {'; '.join(v)}" for n, v in rows.items()]
+            rows[entry]["regs"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+        if WGMMA_NOTE.search(ln):
+            named = re.search(r"'(_Z\w+)'", ln)
+            key = named.group(1) if named else entry
+            rows.setdefault(key, dict(regs=None, spill_stores=0, spill_loads=0,
+                                      notes=[]))["notes"].append(ln.strip())
+    return rows
+
+
+def kernel_label(mangled):
+    """A readable name of K1's and K2's instantiations → (label, wide or
+    None when not K1/K2)."""
+    k5 = re.search(r"precision_dot_kernelILi(\d)E", mangled)
+    if k5:
+        return f"K5 precision_dot<{('bf16', 'tf32', 'bf16x3', 'fp32')[int(k5.group(1))]}>", None
+    m = re.match(r"_Z(\d+)", mangled)
+    if not m:
+        return mangled, None
+    name = mangled[m.end():m.end() + int(m.group(1))]
+    args = [int(a) for a in re.findall(r"L[ib](\d+)E", mangled[m.end() + int(m.group(1)):]
+                                        .split("EEv")[0] + "E")]
+    if name == "fused_mlp_kernel" and len(args) == 1:
+        return f"K1 fused_mlp<H={args[0]}>", args[0] > 256
+    if name == "fused_raymarch_kernel" and len(args) == 3:
+        enc = ("freq", "kplanes", "ipe")[args[0]]
+        return (f"K2 fused_raymarch<{enc}{', contract' if args[1] else ''}, "
+                f"H={args[2]}>", args[2] > 256)
+    return name, None
+
+
+def build_notes(cuda_build):
+    """Registers, spills and wgmma notes (C7510-C7520) of every kernel, from
+    each library's persisted ``-Xptxas -v`` report (a cached build reports
+    too); the notes that serialize wgmmas are printed in full. Fails on a
+    spill anywhere and on a serializing note in K1 or K2 at hidden width 128
+    or 256. → {label: serializing notes} of the wide (384 / 512) ones."""
+    wide_notes = {}
+    for src in cuda_build.SOURCES:
+        log = cuda_build.build_log(src)
+        check(log, f"no compiler report for {src}")
+        for mangled, e in ptxas_entries(log).items():
+            label, wide = kernel_label(mangled)
+            codes = {}
+            for note in e["notes"]:
+                code = WGMMA_NOTE.search(note).group(1)
+                codes[code] = codes.get(code, 0) + 1
+            serial = [n for n in e["notes"] if "serialized" in n]
+            print(f"[build]   {src}: {label}: {e['regs']} registers, "
+                  f"{e['spill_stores']} bytes spill stores, {e['spill_loads']} bytes "
+                  f"spill loads, wgmma notes {codes or 'none'}, "
+                  f"{len(serial)} serializing", flush=True)
+            for note in serial:
+                print(f"[build]     {note[:300]}", flush=True)
+            check(e["spill_stores"] == 0 and e["spill_loads"] == 0,
+                  f"{label} spills registers")
+            check(wide is not False or not serial,
+                  f"{label} (hidden width 128 / 256) serializes its wgmmas")
+            if wide and serial:
+                wide_notes[label] = serial
+    return wide_notes
 
 
 def last_bin_kink(pairs):
@@ -431,9 +518,9 @@ def phase_360_tile(torch, dev, card, packed_freq, kernels):
     enc_err = max_diff(enc_k.float(), enc_p.float())
     n_off = int((enc_k != enc_p).sum())
     print(f"[K3] encode-only {pts.shape[0]} rows x {ep}: max|diff| {enc_err:.3g}, "
-          f"{n_off} of {enc_k.numel()} values differ (one bf16 ulp allowed)",
+          f"{n_off} of {enc_k.numel()} values differ (bit for bit required)",
           flush=True)
-    check(ulp_ok(enc_k, enc_p), "K3 encode-only differs by more than one bf16 ulp")
+    check(n_off == 0, f"K3 encode-only differs from its plain version in {n_off} values")
     check(not enc_k[:, P:].float().any(), "K3 padding columns are not zero")
 
     # K2c alone: the frequency model with contraction, on the same tile
@@ -925,6 +1012,262 @@ def phase_ipe_slice(torch, dev, card, model_c, model_f, t4, ctx):
     return launches
 
 
+def phase_wide(torch, dev, card, t4, kernels):
+    """3w, 4w, 5w: hidden widths 384 and 512, the wide instantiations of K1
+    and K2 (activations in shared memory, layers in 32-column chunks). K1 at
+    2^20 rows of an 8xH skip-4 MLP with seeded weights, and one 8x512
+    Blender fine tile (phase 4's) on the frequency route, against their plain
+    versions, timed with their bounds; then one 800x800 Blender frame of the
+    8x512 model through ``render_pose`` and each width's
+    ``nerf_forward_pass(use_kernel=True)`` through K1, counted. → launches."""
+    import numpy as np
+
+    from nerf_sandbox_tpu_torch.core.encoding import (
+        positional_encoding, vanilla_encoders)
+    from nerf_sandbox_tpu_torch.models.forward import nerf_forward_pass
+    from nerf_sandbox_tpu_torch.models.mlp import NeRFConfig, NeRFMLP
+    from nerf_sandbox_tpu_torch.ops import fused_mlp as fm
+    from nerf_sandbox_tpu_torch.ops import fused_raymarch as fr
+    from nerf_sandbox_tpu_torch.render.renderer import (
+        EvalHyper, make_tile_renderer, render_pose)
+
+    pos_bands, dir_bands = vanilla_encoders()
+    src = "nerf_sandbox_tpu_torch/csrc/"
+    rng = np.random.RandomState(1)
+    Q = EVAL_CHUNK * 64
+    ep = torch.from_numpy((rng.normal(size=(Q, 63)) * 0.5).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    ed = torch.from_numpy((rng.normal(size=(Q, 27)) * 0.5).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    models = {}
+    for H in (384, 512):
+        cfg = NeRFConfig(63, 27, 8, H, 4)
+        m = NeRFMLP(cfg, generator=torch.Generator().manual_seed(H), device=dev)
+        pk = fm.pack_nerf_params(m)
+        got = fm.fused_nerf_apply(pk, ep, ed)
+        want = fm.fused_nerf_apply_plain(pk, ep, ed)
+        torch.cuda.synchronize()
+        err = max_diff(got, want)
+        check(torch.isfinite(got).all().item(), f"K1 8x{H} output not finite")
+        check(err <= 0.05, f"K1 8x{H} max |diff| {err} > 0.05")
+        ms = cuda_ms(torch, lambda: fm.fused_nerf_apply(pk, ep, ed))
+        plain_ms = cuda_ms(torch, lambda: fm.fused_nerf_apply_plain(pk, ep, ed), reps=3)
+        b_ms, b_by = bound(2.0 * mlp_macs_per_row(cfg) * Q,
+                           Q * (63 + 27) * 2 + pk.flat.numel() * 2 + Q * 4 * 4)
+        print(f"[K1 8x{H}] Q={Q} max|diff|={err:.3g} (tol 0.05) kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
+              f"{2.0 * mlp_macs_per_row(cfg) / 1e6:.3f} MFLOP a row) | {card}",
+              flush=True)
+        fetch_line(f"K1 8x{H}", ms, b_ms, -(-Q // fm.TILE_M), pk, card)
+        kernels[f"fused_mlp_h{H}"] = dict(
+            name=f"fused_mlp_h{H}", route="cuda", source=src + "fused_mlp.cu",
+            replaces="nerf_sandbox_tpu/ops/fused_mlp.py:162", max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        models[H] = (m, pk)
+    del ep, ed
+
+    # 4w: phase 4's Blender fine tile through the 8x512 model
+    m, pk = models[512]
+    ro, rd, rn, vd, z, zc, enc_dir = (t4[k] for k in ("ro", "rd", "rn", "vd", "z",
+                                                       "zc", "enc_dir"))
+    B, N = z.shape
+    dt = fr._deltas(z, rn, True)
+    got = fr.fused_raymarch(pk, ro, rd, z, rn, enc_dir, pos_bands)
+    want = fr.fixup_outputs(*fr.fused_raymarch_plain(
+        pk, ro, rd, z, dt, rn, enc_dir, pos_bands))
+    torch.cuda.synchronize()
+    enc_last = positional_encoding(ro + rd * (z[:, -1:] * rn), pos_bands)
+    kink, bands = last_bin_kink([(
+        fm.fused_nerf_apply(pk, enc_last, enc_dir)[:, 3],
+        fm.fused_nerf_apply_plain(pk, enc_last, enc_dir)[:, 3])])
+    print(f"[K2 8x512] kink band |logit| < {bands[0]:.3g}", flush=True)
+    k2_err = hold_off_kink("K2 8x512", got, want, kink)
+    ms = cuda_ms(torch, lambda: fr.fused_raymarch(pk, ro, rd, z, rn, enc_dir, pos_bands))
+    coarse_ms = cuda_ms(torch, lambda: fr.fused_raymarch(pk, ro, rd, zc, rn, enc_dir,
+                                                         pos_bands))
+    plain_ms = cuda_ms(torch, lambda: fr.fused_raymarch_plain(
+        pk, ro, rd, z, dt, rn, enc_dir, pos_bands), reps=3)
+    macs = mlp_macs_per_row(m.cfg)
+    b_ms, b_by = bound(2.0 * macs * B * N, B * (7 + 27) * 4 + B * N * 4 * 3
+                       + B * 5 * 4 + pk.flat.numel() * 2)
+    b_coarse = bound(2.0 * macs * B * zc.shape[1], 0.0)[0]
+    print(f"[K2 8x512] fine tile {B}x{N} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {b_ms:.3f} ms ({b_by}); coarse tile {B}x{zc.shape[1]} kernel "
+          f"{coarse_ms:.3f} ms | {card}", flush=True)
+    fetch_line("K2 8x512 fine", ms, b_ms, mlp_passes(B, N), pk, card)
+    fetch_line("K2 8x512 coarse", coarse_ms, b_coarse, mlp_passes(B, zc.shape[1]), pk,
+               card)
+    kernels["fused_raymarch_h512"] = dict(
+        name="fused_raymarch_h512", route="cuda", source=src + "fused_raymarch.cu",
+        replaces="nerf_sandbox_tpu/ops/fused_raymarch.py:559", max_abs_err=k2_err,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    # 5w: the wide slice, counted
+    tile_k = make_tile_renderer(EvalHyper(model=m.cfg, use_kernel=True), pos_bands,
+                                dir_bands, device=dev)
+    fwd_kw = dict(pos_bands=pos_bands, dir_bands=dir_bands, white_bkgd=True,
+                  ray_norms=rn, viewdirs_world_unit=vd, infinite_last_bin=True,
+                  compute_dtype=torch.bfloat16, use_kernel=True, device=dev)
+    torch.cuda.synchronize()
+    fr.reset_launches()
+    fm.fused_nerf_apply.launches = 0
+    t0 = time.perf_counter()
+    frame = render_pose(tile_k, m, m, blender_pose(1), IMG, IMG, t4["Kmat"],
+                        eval_chunk=EVAL_CHUNK, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    with torch.no_grad():
+        fwd = nerf_forward_pass(m, ro, rd, z, **fwd_kw)
+    torch.cuda.synchronize()
+    routes = dict(fr.fused_raymarch.route_launches)
+    launches = {"fused_raymarch_h512": routes["freq"],
+                "fused_mlp_h512": fm.fused_nerf_apply.launches}
+    n_tiles = -(-IMG * IMG // EVAL_CHUNK)
+    check(fr.fused_raymarch.launches == routes["freq"] == 2 * n_tiles,
+          f"the 8x512 frame launched K2 {fr.fused_raymarch.launches} times ({routes}), "
+          f"expected {2 * n_tiles} frequency launches")
+    check(launches["fused_mlp_h512"] >= 1, "K1 8x512 was not launched")
+    for key in ("rgb", "acc", "depth"):
+        check(np.isfinite(frame[key]).all(), f"8x512 frame {key} not finite")
+    check(frame["rgb"].min() >= 0.0 and frame["rgb"].max() <= 1.0,
+          "8x512 frame rgb outside [0, 1]")
+    fwd_err = max_diff(fwd[0][~kink], got[0][~kink])
+    check(fwd_err <= 2e-2, f"K1 8x512 forward vs K2 comp max |diff| {fwd_err}")
+    fm.fused_nerf_apply.launches = 0
+    with torch.no_grad():
+        m3 = models[384][0]
+        fwd3 = nerf_forward_pass(m3, ro, rd, z, **fwd_kw)
+    torch.cuda.synchronize()
+    launches["fused_mlp_h384"] = fm.fused_nerf_apply.launches
+    check(launches["fused_mlp_h384"] >= 1 and bool(torch.isfinite(fwd3[0]).all()),
+          "K1 8x384 was not launched or gave non-finite colours")
+    print(f"[slice 8x512] one {IMG}x{IMG} frame {secs:.3f} s, launches {launches}, "
+          f"K2 routes {routes}; nerf_forward_pass vs K2 on the tile, off the kink: "
+          f"comp max|diff| {fwd_err:.3g} | {card}", flush=True)
+    return launches
+
+
+def phase_kp_narrow(torch, dev, card, ctx, kernels):
+    """4b4, 5b4: the 360 configuration with 4-feature planes (planes (64, 128)
+    x 4, lines 512 x 16, hybrid 6: 63 columns), whose texels the kernels read
+    in groups of 4: K2 with K2c + K3 on phase 4b's fine tile against its plain
+    version and K3's encode-only entry bit for bit, timed with their bounds;
+    then one 800x800 frame through ``render_pose`` and one
+    ``nerf_forward_pass`` through K3 + K1, counted. → launches."""
+    import numpy as np
+
+    from nerf_sandbox_tpu_torch.core.encoding import scene_contract, vanilla_encoders
+    from nerf_sandbox_tpu_torch.models.forward import nerf_forward_pass
+    from nerf_sandbox_tpu_torch.models.kplanes import KPlanesConfig
+    from nerf_sandbox_tpu_torch.models.mlp import NeRFConfig, NeRFMLP
+    from nerf_sandbox_tpu_torch.ops import fused_mlp as fm
+    from nerf_sandbox_tpu_torch.ops import fused_raymarch as fr
+    from nerf_sandbox_tpu_torch.ops import kplanes_encode as ke
+    from nerf_sandbox_tpu_torch.render.renderer import (
+        EvalHyper, make_tile_renderer, render_pose)
+
+    src = "nerf_sandbox_tpu_torch/csrc/"
+    kcfg = KPlanesConfig((64, 128), 4, 512, 16, aabb_scale=2.0, hybrid_freqs=6)
+    cfg = NeRFConfig(kcfg.out_dim, 27, 8, 256, 4)
+    model = NeRFMLP(cfg, generator=torch.Generator().manual_seed(5), grid_cfg=kcfg,
+                    device=dev)
+    mlp, grid = fm.pack_nerf_params(model), ke.pack_kplanes(model.pos_grid, kcfg)
+    ep, P = fm._enc_pads(cfg)[0], cfg.enc_pos_dim
+    ro, rd, rn, vd, z, enc_dir = (ctx[k] for k in ("ro", "rd", "rn", "vd", "z",
+                                                   "enc_dir"))
+    B, N = z.shape
+    dt = fr._deltas(z, rn, True)
+    kw = dict(kp_params=grid, kp_cfg=kcfg, scene_contraction=True)
+    got = fr.fused_raymarch(mlp, ro, rd, z, rn, enc_dir, None, **kw)
+    want = fr.fixup_outputs(*fr.fused_raymarch_plain(
+        mlp, ro, rd, z, dt, rn, enc_dir, None, contract=True, kp=grid))
+    pts = scene_contract((ro[:, None, :] + rd[:, None, :] * (z * rn)[..., None])
+                         .reshape(-1, 3))
+    last = pts.reshape(B, N, 3)[:, -1]
+    kink, bands = last_bin_kink([(
+        fm.fused_nerf_apply(mlp, ke.fused_kplanes_encode(grid, last, ep)[:, :P],
+                            enc_dir)[:, 3],
+        fm.fused_nerf_apply_plain(mlp, ke.kplanes_encode_plain(grid, last, ep)[:, :P],
+                                  enc_dir)[:, 3])])
+    print(f"[K2c+K3 F=4] kink band |logit| < {bands[0]:.3g}", flush=True)
+    kp_err = hold_off_kink("K2c+K3 F=4", got, want, kink)
+    enc_k = ke.fused_kplanes_encode(grid, pts, ep)
+    enc_p = ke.kplanes_encode_plain(grid, pts, ep)
+    torch.cuda.synchronize()
+    n_off = int((enc_k != enc_p).sum())
+    enc_err = max_diff(enc_k.float(), enc_p.float())
+    print(f"[K3 F=4] encode-only {pts.shape[0]} rows x {ep}: {n_off} of "
+          f"{enc_k.numel()} values differ from the plain version", flush=True)
+    check(n_off == 0, f"K3 F=4 encode-only differs from its plain version in {n_off} values")
+    kp_ms = cuda_ms(torch, lambda: fr.fused_raymarch(mlp, ro, rd, z, rn, enc_dir, None,
+                                                     **kw))
+    kp_plain_ms = cuda_ms(torch, lambda: fr.fused_raymarch_plain(
+        mlp, ro, rd, z, dt, rn, enc_dir, None, contract=True, kp=grid), reps=3)
+    enc_ms = cuda_ms(torch, lambda: ke.fused_kplanes_encode(grid, pts, ep))
+    enc_plain_ms = cuda_ms(torch, lambda: ke.kplanes_encode_plain(grid, pts, ep), reps=3)
+    Q = B * N
+    kp_flops = kplanes_fp32_flops(kcfg) * Q
+    b_kp = bound(2.0 * mlp_macs_per_row(cfg) * Q, B * (7 + 27) * 4 + Q * 4 * 3
+                 + B * 5 * 4 + mlp.flat.numel() * 2 + grid.flat.numel() * 2,
+                 kp_flops + 20.0 * Q)
+    b_enc = bound(0.0, Q * 3 * 4 + Q * ep * 2 + grid.flat.numel() * 2, kp_flops)
+    print(f"[K2c+K3 F=4] fine tile {B}x{N} kernel {kp_ms:.3f} ms, plain "
+          f"{kp_plain_ms:.3f} ms, bound {b_kp[0]:.3f} ms ({b_kp[1]}); K3 encode-only "
+          f"{Q} rows kernel {enc_ms:.3f} ms, plain {enc_plain_ms:.3f} ms, bound "
+          f"{b_enc[0]:.3f} ms ({b_enc[1]}) | {card}", flush=True)
+    kernels["fused_raymarch_kplanes_f4"] = dict(
+        name="fused_raymarch_kplanes_f4", route="cuda", source=src + "fused_raymarch.cu",
+        replaces="nerf_sandbox_tpu/ops/fused_raymarch.py:211", max_abs_err=kp_err,
+        ms=kp_ms, plain_ms=kp_plain_ms, bound_ms=b_kp[0], bound_by=b_kp[1],
+        library_ms=None)
+    kernels["kplanes_encode_f4"] = dict(
+        name="kplanes_encode_f4", route="cuda", source=src + "kplanes_encode.cu",
+        replaces="nerf_sandbox_tpu/ops/fused_raymarch.py:211", max_abs_err=enc_err,
+        ms=enc_ms, plain_ms=enc_plain_ms, bound_ms=b_enc[0], bound_by=b_enc[1],
+        library_ms=None)
+
+    # the F = 4 slice, counted
+    _, dir_bands = vanilla_encoders()
+    hyper = EvalHyper(model=cfg, samp_near=NEAR_360, samp_far=FAR_360, lindisp=True,
+                      scene_contraction=True, pos_encoder="kplanes", enc_cfg=kcfg,
+                      use_kernel=True)
+    tile_k = make_tile_renderer(hyper, None, dir_bands, device=dev)
+    torch.cuda.synchronize()
+    fr.reset_launches()
+    ke.fused_kplanes_encode.launches = 0
+    fm.fused_nerf_apply.launches = 0
+    t0 = time.perf_counter()
+    frame = render_pose(tile_k, model, model, orbit_360_pose(1), IMG, IMG, ctx["Kmat"],
+                        eval_chunk=EVAL_CHUNK, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    with torch.no_grad():
+        fwd = nerf_forward_pass(model, ro, rd, z, pos_bands=None, dir_bands=dir_bands,
+                                white_bkgd=True, ray_norms=rn, viewdirs_world_unit=vd,
+                                infinite_last_bin=True, compute_dtype=torch.bfloat16,
+                                use_kernel=True, pos_encoder="kplanes", enc_cfg=kcfg,
+                                scene_contraction=True, device=dev)
+    torch.cuda.synchronize()
+    routes = dict(fr.fused_raymarch.route_launches)
+    launches = {"fused_raymarch_kplanes_f4": routes["kplanes"],
+                "kplanes_encode_f4": ke.fused_kplanes_encode.launches}
+    n_tiles = -(-IMG * IMG // EVAL_CHUNK)
+    check(routes["kplanes"] == routes["contract"] == 2 * n_tiles,
+          f"the F = 4 frame: K2 routes {routes}, expected {2 * n_tiles} k-planes launches")
+    check(launches["kplanes_encode_f4"] >= 1 and fm.fused_nerf_apply.launches >= 1,
+          "K3's encode-only entry or K1 was not launched on the F = 4 path")
+    for key in ("rgb", "acc", "depth"):
+        check(np.isfinite(frame[key]).all(), f"F = 4 frame {key} not finite")
+    check(frame["rgb"].min() >= 0.0 and frame["rgb"].max() <= 1.0,
+          "F = 4 frame rgb outside [0, 1]")
+    fwd_err = max_diff(fwd[0][~kink], got[0][~kink])
+    check(fwd_err <= 2e-2, f"K3 + K1 F = 4 forward vs K2 comp max |diff| {fwd_err}")
+    print(f"[slice 360 F=4] one {IMG}x{IMG} frame {secs:.3f} s, launches {launches}, "
+          f"K2 routes {routes}; nerf_forward_pass vs K2 on the tile, off the kink: "
+          f"comp max|diff| {fwd_err:.3g} | {card}", flush=True)
+    return launches
+
+
 def phase_precision_probe(torch, dev, card, kernels):
     """7: K5 on the TPU probe's shapes in every mode, counted, each output
     held against its plain version; timed beside ``torch.matmul``. → its
@@ -954,18 +1297,26 @@ def phase_precision_probe(torch, dev, card, kernels):
               flush=True)
         check(ok and np.isfinite(r["max_abs"]),
               f"K5 {r['shape']} {r['mode']} differs from its plain version")
-    a, b = next((r["a"], r["b"]) for r in rows if r["shape"].startswith("one-hot"))
     # single launches are shorter than their host overhead: time them from
-    # CUDA graphs of 100 calls
-    times = {m: graph_ms(torch, lambda m=m: pp.precision_dot(a, b, m))
-             for m in pp.MODES}
+    # CUDA graphs of 100 calls, each shape in every mode beside torch.matmul
+    table = {}
+    for shape in dict.fromkeys(r["shape"] for r in rows):
+        a, b = next((r["a"], r["b"]) for r in rows if r["shape"] == shape)
+        t = {m: graph_ms(torch, lambda m=m: pp.precision_dot(a, b, m)) for m in pp.MODES}
+        t["matmul"] = graph_ms(torch, lambda: torch.matmul(a, b))
+        table[shape] = t
+        print(f"[K5] {shape:24s} {a.shape[0]}x{a.shape[1]}x{b.shape[1]} us per launch: "
+              + ", ".join(f"{m} {1e3 * v:.2f}" for m, v in t.items())
+              + f"; every mode at or under torch.matmul: "
+              f"{all(t[m] <= t['matmul'] for m in pp.MODES)} | {card}", flush=True)
+    a, b = next((r["a"], r["b"]) for r in rows if r["shape"].startswith("one-hot"))
+    times = table[next(s for s in table if s.startswith("one-hot"))]
     plain_ms = graph_ms(torch, lambda: pp.precision_dot_plain(a, b, "fp32"))
-    lib_ms = graph_ms(torch, lambda: torch.matmul(a, b))
+    lib_ms = times["matmul"]
     M, K = a.shape
     N = b.shape[1]
     b_k5 = bound(0.0, (M * K + K * N + M * N) * 4, 2.0 * M * K * N)
-    print(f"[K5] {M}x{K}x{N}: kernel {times} ms, plain fp32 (fp64 product) "
-          f"{plain_ms:.4f} ms, torch.matmul fp32 {lib_ms:.4f} ms, bound "
+    print(f"[K5] {M}x{K}x{N}: plain fp32 (fp64 product) {plain_ms:.4f} ms, bound "
           f"{b_k5[0]:.2e} ms ({b_k5[1]}) | {card}", flush=True)
     kernels["precision_probe"] = dict(
         name="precision_probe", route="cuda",
@@ -1013,8 +1364,9 @@ def run(torch, root):
           f"{sorted(report) or 'nothing (already built)'}", flush=True)
     for src, rep in report.items():
         print(f"[build] {src}: {rep['seconds']:.2f} s", flush=True)
-        for line in ptxas_summary(rep["ptxas"]):
-            print(f"[build]   {line}", flush=True)
+    wide_notes = build_notes(cuda_build)
+    print(f"[build] wide (384 / 512) instantiations of K1 and K2 with serialized "
+          f"wgmmas: {sorted(wide_notes) or 'none'}", flush=True)
 
     cfg = NeRFConfig(enc_pos_dim=63, enc_dir_dim=27, n_layers=8,
                      hidden_dim=256, skip_pos=4)
@@ -1254,12 +1606,19 @@ def run(torch, root):
     # ---- 5c. the IPE slice: render_pose through K4 ----
     launches_ipe = phase_ipe_slice(torch, dev, card, model_c, model_f, t4, ctx_ipe)
 
+    # ---- 3w, 4w, 5w. hidden widths 384 and 512: K1 and K2's wide path ----
+    launches_wide = phase_wide(torch, dev, card, t4, kernels)
+
+    # ---- 4b4, 5b4. the 360 configuration with 4-feature planes ----
+    launches_kp4 = phase_kp_narrow(torch, dev, card, ctx360, kernels)
+
     # ---- 7. K5, the precision probe ----
     launches_probe = phase_precision_probe(torch, dev, card, kernels)
 
     # ---- 6. kernels line ----
     for key, k in kernels.items():
         k["launches"] = next(d[key] for d in (launches, launches_360, launches_ipe,
+                                              launches_wide, launches_kp4,
                                               launches_probe) if key in d)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

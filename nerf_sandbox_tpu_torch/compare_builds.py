@@ -1,17 +1,19 @@
-"""Time two builds of the MLP-tile kernels (K1 and K2) in turns, on one card.
+"""Time two builds of K1, K2 and K3's encode-only entry in turns, on one card.
 
     python -m nerf_sandbox_tpu_torch.compare_builds --old-csrc DIR [--out FILE]
 
-``DIR`` holds an earlier ``csrc/`` (``fused_mlp.cu``, ``fused_raymarch.cu``
-and the headers they include) whose C entry points take the packed weights
-without the staged weight stream: the wmma version of the kernels, before
-the wgmma redesign. The script builds it with the package's nvcc flags into
+``DIR`` holds an earlier ``csrc/`` (``fused_mlp.cu``, ``fused_raymarch.cu``,
+``kplanes_encode.cu`` and the headers they include) whose C entry points are
+the current ones: the wgmma tile, with the staged weight stream. The script
+builds it with the package's nvcc flags, one compiler each, into
 ``build/compare_old/``, builds the current sources as the package does, and
 times, in the order old, new, new, old (each a median of 10 CUDA-event runs
-after warm-up): K1 at 2^20 rows and K2 on the Blender fine (16384 x 192) and
+after warm-up): K1 at 2^20 rows, K2 on the Blender fine (16384 x 192) and
 coarse (16384 x 64) eval tiles of ``chip_smoke.py`` (the reference weights,
-frame 1's mid-frame tile). Both builds are called through ctypes on the same
-prepared tensors. It prints each time, old and new outputs' largest
+frame 1's mid-frame tile), and K3's encode-only entry on the contracted
+points of a 360 tile (16384 rays of frame 1's middle x 192 lindisp samples,
+the full-width planes of ``chip_smoke.kp_configs``). Both builds are called
+through ctypes on the same prepared tensors. It prints each time, old and new outputs' largest
 difference, the card's name and power limit, and the rate of a copy between
 two 16 MB buffers resident in L2 (a lower bound on the card's L2 bandwidth,
 for reading the weight-stream rates that ``chip_smoke.py`` prints);
@@ -35,7 +37,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def build_variant(csrc: Path, tag: str, names=("fused_mlp", "fused_raymarch")) -> dict:
+def build_variant(csrc: Path, tag: str,
+                  names=("fused_mlp", "fused_raymarch", "kplanes_encode")) -> dict:
     """nvcc each named source of csrc into build/<tag>/ with the package's
     flags, in parallel. → {name: loaded library}."""
     from nerf_sandbox_tpu_torch.ops import cuda_build
@@ -72,7 +75,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from nerf_sandbox_tpu_torch.core.encoding import (
-        positional_encoding, vanilla_encoders)
+        positional_encoding, scene_contract, vanilla_encoders)
     from nerf_sandbox_tpu_torch.core.rays import get_camera_rays_grid
     from nerf_sandbox_tpu_torch.core.sampling import (
         merge_z_samples, resample_midpoints, stratified_samples)
@@ -80,6 +83,7 @@ def main(argv=None) -> int:
     from nerf_sandbox_tpu_torch.ops import cuda_build
     from nerf_sandbox_tpu_torch.ops import fused_mlp as fm
     from nerf_sandbox_tpu_torch.ops import fused_raymarch as fr
+    from nerf_sandbox_tpu_torch.ops import kplanes_encode as ke
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -87,7 +91,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     old = build_variant(args.old_csrc, "compare_old")
-    cuda_build.build_all(("fused_mlp", "fused_raymarch"))
+    cuda_build.build_all(("fused_mlp", "fused_raymarch", "kplanes_encode"))
     print(f"[compare] built old and new in {time.perf_counter() - t0:.1f} s | {card}",
           flush=True)
 
@@ -110,22 +114,17 @@ def main(argv=None) -> int:
         dev, torch.bfloat16)
     k1_out = {k: torch.empty((Q, 4), dtype=torch.float32, device=dev)
               for k in ("old", "new")}
-    f_old = old["fused_mlp"].nerf_fused_mlp
-    f_old.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
-                      + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
-    f_new = cuda_build.load("fused_mlp").nerf_fused_mlp
-    f_new.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
-                      + [ctypes.c_void_p] + [ctypes.c_int] * 8
-                      + [ctypes.c_void_p] * 2)
+    libs = {"old": old, "new": {n: cuda_build.load(n) for n in old}}
+    f = {w: libs[w]["fused_mlp"].nerf_fused_mlp for w in libs}
+    for fn in f.values():
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p] * 2)
     shape = (Q, 63, 27, cfg.hidden_dim, ep_pad, ed_pad, cfg.n_layers, cfg.skip_pos)
 
     def k1(which):
-        if which == "old":
-            err = f_old(_ptr(ep), _ptr(ed), _ptr(packed.flat), offsets, *shape,
-                        _ptr(k1_out["old"]), stream)
-        else:
-            err = f_new(_ptr(ep), _ptr(ed), _ptr(packed.flat), offsets,
-                        _ptr(packed.staged), *shape, _ptr(k1_out["new"]), stream)
+        err = f[which](_ptr(ep), _ptr(ed), _ptr(packed.flat), offsets,
+                       _ptr(packed.staged), *shape, _ptr(k1_out[which]), stream)
         if err:
             raise RuntimeError(f"{which} K1 launch: CUDA error {err}")
 
@@ -148,47 +147,65 @@ def main(argv=None) -> int:
     zc = zc.contiguous()
     bands = np.asarray(pos_bands, np.float32).reshape(-1)
     c_bands = (ctypes.c_float * bands.size)(*bands.tolist())
-    g_old = old["fused_raymarch"].nerf_fused_raymarch
-    g_new = cuda_build.load("fused_raymarch").nerf_fused_raymarch
+    g = {w: libs[w]["fused_raymarch"].nerf_fused_raymarch for w in libs}
     tail = [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    kp_types = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
-                 ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 5
-                + [ctypes.c_float, ctypes.POINTER(ctypes.c_float), ctypes.c_int])
-    head = [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_float)] + [ctypes.c_int] * 2
-    g_old.argtypes = (head + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)]
-                      + tail + kp_types + [ctypes.c_void_p] * 3)
-    g_new.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
-                      + [ctypes.POINTER(ctypes.c_float)] + [ctypes.c_int] * 2
-                      + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
-                         ctypes.c_void_p] + tail + kp_types + [ctypes.c_void_p] * 3)
+    for fn in g.values():
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                       + [ctypes.POINTER(ctypes.c_float)] + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
+                          ctypes.c_void_p] + tail + ke.KP_C_ARGTYPES
+                       + [ctypes.c_void_p] * 3)
     tiles = {}
     for name, z in (("fine", zf), ("coarse", zc)):
         B, N = z.shape
-        dt = fr._deltas(z, rn, True).contiguous()
         outs = {k: (torch.empty((B, 5), dtype=torch.float32, device=dev),
                     torch.empty((B, N), dtype=torch.float32, device=dev))
                 for k in ("old", "new")}
-        tiles[name] = (z, dt, outs)
+        tiles[name] = (z, outs)
 
     def k2(which, name):
-        z, dt, outs = tiles[name]
+        z, outs = tiles[name]
         B, N = z.shape
         rest = [B, N, 27, cfg.hidden_dim, ep_pad, ed_pad, cfg.n_layers, cfg.skip_pos,
                 0, 1, 0, 0.0, 0, None, None, None, None, 0, 0, 0, 0, 0, 0.0, None, 0,
                 _ptr(outs[which][0]), _ptr(outs[which][1]), stream]
         rays = [_ptr(ro), _ptr(rd), _ptr(rn), _ptr(enc_dir), _ptr(z)]
         weights = [c_bands, bands.size, 1, _ptr(packed.flat), offsets]
-        if which == "old":     # takes the deltas, the new kernel forms them
-            err = g_old(*rays, _ptr(dt), *weights, *rest)
-        else:
-            err = g_new(*rays, 1, *weights, _ptr(packed.staged), *rest)
+        err = g[which](*rays, 1, *weights, _ptr(packed.staged), *rest)
         if err:
             raise RuntimeError(f"{which} K2 launch: CUDA error {err}")
+
+    # K3 inputs: the 360 configuration's tables (seeded) on contracted points
+    kcfg, kp_mlp = cs.kp_configs()
+    grid = ke.pack_kplanes(NeRFMLP(kp_mlp, generator=torch.Generator().manual_seed(2),
+                                   grid_cfg=kcfg, device=dev).pos_grid, kcfg)
+    kp_ep = fm._enc_pads(kp_mlp)[0]
+    rays_360 = get_camera_rays_grid(
+        torch.from_numpy(Kmat).to(dev), torch.from_numpy(cs.orbit_360_pose(1)).to(dev),
+        image_h=cs.IMG, image_w=cs.IMG, pixel_center=True)
+    z360 = stratified_samples(cs.NEAR_360, cs.FAR_360, 192, lindisp=True, device=dev)
+    pts = scene_contract(
+        (rays_360.o_march[sl][:, None, :] + rays_360.d_march_unit[sl][:, None, :]
+         * (z360 * rays_360.d_march_norm[sl])[..., None]).reshape(-1, 3)).contiguous()
+    k3_out = {k: torch.empty((pts.shape[0], kp_ep), dtype=torch.bfloat16, device=dev)
+              for k in ("old", "new")}
+    h = {w: libs[w]["kplanes_encode"].nerf_kplanes_encode for w in libs}
+    for fn in h.values():
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + ke.KP_C_ARGTYPES
+                       + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    kp_args = ke.kp_c_args(grid)
+
+    def k3(which):
+        err = h[which](_ptr(pts), pts.shape[0], *kp_args, kp_ep, _ptr(k3_out[which]),
+                       stream)
+        if err:
+            raise RuntimeError(f"{which} K3 launch: CUDA error {err}")
 
     result = {"card": card}
     for label, fn in (("K1 2^20 rows", k1),
                       ("K2 fine 16384x192", lambda w: k2(w, "fine")),
-                      ("K2 coarse 16384x64", lambda w: k2(w, "coarse"))):
+                      ("K2 coarse 16384x64", lambda w: k2(w, "coarse")),
+                      (f"K3 encode-only {pts.shape[0]} rows", k3)):
         times = []
         for which in ("old", "new", "new", "old"):
             times.append((which, cs.cuda_ms(torch, lambda: fn(which))))
@@ -201,11 +218,13 @@ def main(argv=None) -> int:
               f" | {card}", flush=True)
         result[label] = {"order": [w for w, _ in times], "ms": [t for _, t in times]}
     d_k1 = float((k1_out["old"] - k1_out["new"]).abs().max())
-    d_k2 = {n: [float((tiles[n][2]["old"][i] - tiles[n][2]["new"][i]).abs().max())
+    d_k2 = {n: [float((tiles[n][1]["old"][i] - tiles[n][1]["new"][i]).abs().max())
                 for i in (0, 1)] for n in tiles}
+    n_k3 = int((k3_out["old"] != k3_out["new"]).sum())
     print(f"[compare] old vs new outputs: K1 max|diff| {d_k1:.3g}; K2 (raw, w) "
-          f"max|diff| {d_k2}", flush=True)
-    result["max_diff"] = {"K1": d_k1, "K2": d_k2}
+          f"max|diff| {d_k2}; K3 {n_k3} of {k3_out['new'].numel()} values differ",
+          flush=True)
+    result["max_diff"] = {"K1": d_k1, "K2": d_k2, "K3_values_differ": n_k3}
 
     # copies between two 16 MB buffers that stay in the 50 MB L2, timed from
     # a CUDA graph of 20 so that launch gaps do not count

@@ -11,6 +11,7 @@ namespace nerf {
 using bf16 = __nv_bfloat16;
 }  // namespace nerf
 
-extern "C" const char* nerf_cuda_error_string(int err) {
+// weak: every object of a library built in parts carries it; one is kept
+extern "C" __attribute__((weak)) const char* nerf_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -10,9 +10,10 @@
 // 128 rows per weight fetch from L2, through a ring of up to 8 stages). Each
 // consumer warpgroup stages its 64 rows' bf16 encodings in shared memory in
 // wgmma's swizzled layout (zero padding 63->64 and 27->64 columns and the
-// ragged last tile), runs the MLP with the activations in registers, and
-// writes only the 4 real output columns (the TPU's 128-lane output padding is
-// gone).
+// ragged last tile), runs the MLP with the activations in registers (hidden
+// width 128 or 256) or in shared memory (384 or 512: the wide path of
+// mlp_tile.cuh), and writes only the 4 real output columns (the TPU's
+// 128-lane output padding is gone).
 #include "mlp_tile.cuh"
 
 using namespace nerf;
@@ -23,19 +24,20 @@ fused_mlp_kernel(const bf16* __restrict__ enc_pos,
                  const bf16* __restrict__ enc_dir, int Q, int P_dim, int D_dim,
                  const MlpArgs P, float* __restrict__ out) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  mlp_setup(smem, P);
+  constexpr bool W = H > 256;
+  mlp_setup<W>(smem, P);
   const int wg = warpgroup(), t = threadIdx.x % WG_THREADS;
   if (wg == N_CONSUMERS) {
-    mlp_produce(smem, P);
+    mlp_produce<W>(smem, P);
     return;
   }
   consumer_regs();
-  const MlpSmem S = mlp_carve(smem, P);
+  const MlpSmem S = mlp_carve<W>(smem, P);
   const bf16 zero = __float2bfloat16(0.0f);
   bf16* enc = S.enc[wg];
   bf16* ed = S.ed[wg];
   const float* res = S.out[wg];
-  Pipe pipe(S, P);
+  Pipe pipe(S, P, W);
   const int n_tiles = (Q + TILE_M - 1) / TILE_M;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * TILE_M + wg * WG_ROWS;
@@ -50,7 +52,7 @@ fused_mlp_kernel(const bf16* __restrict__ enc_pos,
     }
     fence_async_smem();
     wg_sync(wg);
-    mlp_pass<H>(P, S, wg, pipe);
+    mlp_pass_any<H>(P, S, wg, pipe);
     wg_sync(wg);
     for (int i = t; i < WG_ROWS * 4; i += WG_THREADS) {
       const int r = row0 + (i >> 2);
@@ -89,6 +91,8 @@ extern "C" int nerf_fused_mlp(const void* enc_pos, const void* enc_dir,
   const bf16* ed = static_cast<const bf16*>(enc_dir);
   float* o = static_cast<float*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H == 512) return launch_mlp<512>(ep, ed, Q, P_dim, D_dim, P, o, st);
+  if (H == 384) return launch_mlp<384>(ep, ed, Q, P_dim, D_dim, P, o, st);
   return H == 256 ? launch_mlp<256>(ep, ed, Q, P_dim, D_dim, P, o, st)
                   : launch_mlp<128>(ep, ed, Q, P_dim, D_dim, P, o, st);
 }

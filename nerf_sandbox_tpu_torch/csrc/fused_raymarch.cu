@@ -8,8 +8,8 @@
 // frequency branch, its contraction branch (:406-413), its k-planes branch
 // (_kp_encode_body, kplanes_encode.cuh) and its IPE branch (:432-486, with
 // the wrapper's interval streams :631-648). The encoder, the contraction and
-// the hidden width (128 or 256) are template parameters, so each of the
-// twelve instantiations carries only its own code. What it computes, not
+// the hidden width (128, 256, 384 or 512) are template parameters, so each
+// of the twenty-four instantiations carries only its own code. What it computes, not
 // its TPU layout:
 //  * the TPU carries per-ray state across SEQUENTIAL grid steps; CUDA blocks
 //    run in no order, so a block owns a group of RAYS rays at a time and
@@ -189,14 +189,15 @@ __global__ void __launch_bounds__(N_THREADS, 1)
 fused_raymarch_kernel(const MarchArgs a, const MlpArgs P,
                       const __grid_constant__ KpArgs k) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  mlp_setup(smem, P);
+  constexpr bool W = H > 256;
+  mlp_setup<W>(smem, P);
   const int wg = warpgroup(), t = threadIdx.x % WG_THREADS;
   if (wg == N_CONSUMERS) {
-    mlp_produce(smem, P);
+    mlp_produce<W>(smem, P);
     return;
   }
   consumer_regs();
-  const MlpSmem S = mlp_carve(smem, P);
+  const MlpSmem S = mlp_carve<W>(smem, P);
   float* pts = reinterpret_cast<float*>(S.extra) + wg * WG_MARCH_FLOATS;  // (64, 3)
   float* var = pts + WG_ROWS * 3;                                          // (64, 3), K4
   float* zdt = var + WG_ROWS * 3;                                          // (2, 2, 64)
@@ -210,7 +211,7 @@ fused_raymarch_kernel(const MarchArgs a, const MlpArgs P,
   const int half = 3 * a.n_bands;
   const int n_enc = n_id + 2 * half;
   const int n_groups = (a.B + RAYS - 1) / RAYS;
-  Pipe pipe(S, P);
+  Pipe pipe(S, P, W);
 
   for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
     const int ray0 = grp * RAYS + wg * WG_RAYS;
@@ -314,7 +315,7 @@ fused_raymarch_kernel(const MarchArgs a, const MlpArgs P,
       fence_async_smem();
       wg_sync(wg);
 
-      mlp_pass<H>(P, S, wg, pipe);
+      mlp_pass_any<H>(P, S, wg, pipe);
       wg_sync(wg);
 
       if (t < WG_RAYS && ray0 + t < a.B) {
@@ -371,20 +372,80 @@ static int launch_march(const MarchArgs& a, MlpArgs P, const KpArgs& k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launches of one encoder and contraction at hidden width 128 / 256
+// (WIDE false) or 384 / 512 (WIDE true): a group of two instantiations.
+template <int ENC, bool CONTRACT, bool WIDE>
+int launch_group(const MarchArgs& a, const MlpArgs& P, const KpArgs& k,
+                 cudaStream_t stream) {
+  if constexpr (WIDE)
+    return P.H == 512 ? launch_march<ENC, CONTRACT, 512>(a, P, k, stream)
+                      : launch_march<ENC, CONTRACT, 384>(a, P, k, stream);
+  else
+    return P.H == 256 ? launch_march<ENC, CONTRACT, 256>(a, P, k, stream)
+                      : launch_march<ENC, CONTRACT, 128>(a, P, k, stream);
+}
+
+// ops/cuda_build.py compiles this file once per group, all at once, with
+// -DNERF_PART=p (p = 4 * encoder + 2 * contraction + wide), and links the
+// twelve objects into one library: part p instantiates group p only, part 0
+// also holds the C entry. Built without NERF_PART, one object holds all.
+#ifdef NERF_PART
+#define GROUP(E, C, W) launch_group<E, C, W>(const MarchArgs&, const MlpArgs&, \
+                                             const KpArgs&, cudaStream_t)
+extern template int GROUP(ENC_FREQ, false, false);
+extern template int GROUP(ENC_FREQ, false, true);
+extern template int GROUP(ENC_FREQ, true, false);
+extern template int GROUP(ENC_FREQ, true, true);
+extern template int GROUP(ENC_KPLANES, false, false);
+extern template int GROUP(ENC_KPLANES, false, true);
+extern template int GROUP(ENC_KPLANES, true, false);
+extern template int GROUP(ENC_KPLANES, true, true);
+extern template int GROUP(ENC_IPE, false, false);
+extern template int GROUP(ENC_IPE, false, true);
+extern template int GROUP(ENC_IPE, true, false);
+extern template int GROUP(ENC_IPE, true, true);
+#if NERF_PART == 0
+template int GROUP(ENC_FREQ, false, false);
+#elif NERF_PART == 1
+template int GROUP(ENC_FREQ, false, true);
+#elif NERF_PART == 2
+template int GROUP(ENC_FREQ, true, false);
+#elif NERF_PART == 3
+template int GROUP(ENC_FREQ, true, true);
+#elif NERF_PART == 4
+template int GROUP(ENC_KPLANES, false, false);
+#elif NERF_PART == 5
+template int GROUP(ENC_KPLANES, false, true);
+#elif NERF_PART == 6
+template int GROUP(ENC_KPLANES, true, false);
+#elif NERF_PART == 7
+template int GROUP(ENC_KPLANES, true, true);
+#elif NERF_PART == 8
+template int GROUP(ENC_IPE, false, false);
+#elif NERF_PART == 9
+template int GROUP(ENC_IPE, false, true);
+#elif NERF_PART == 10
+template int GROUP(ENC_IPE, true, false);
+#elif NERF_PART == 11
+template int GROUP(ENC_IPE, true, true);
+#endif
+#endif
+
 template <int ENC, bool CONTRACT>
-static int launch_h(const MarchArgs& a, const MlpArgs& P, const KpArgs& k,
+static int launch_c(const MarchArgs& a, const MlpArgs& P, const KpArgs& k,
                     cudaStream_t stream) {
-  return P.H == 256 ? launch_march<ENC, CONTRACT, 256>(a, P, k, stream)
-                    : launch_march<ENC, CONTRACT, 128>(a, P, k, stream);
+  return is_wide(P.H) ? launch_group<ENC, CONTRACT, true>(a, P, k, stream)
+                      : launch_group<ENC, CONTRACT, false>(a, P, k, stream);
 }
 
 template <int ENC>
 static int launch_enc(const MarchArgs& a, const MlpArgs& P, const KpArgs& k,
                       bool contract, cudaStream_t stream) {
-  return contract ? launch_h<ENC, true>(a, P, k, stream)
-                  : launch_h<ENC, false>(a, P, k, stream);
+  return contract ? launch_c<ENC, true>(a, P, k, stream)
+                  : launch_c<ENC, false>(a, P, k, stream);
 }
 
+#if !defined(NERF_PART) || NERF_PART == 0
 // kp_pack null: the frequency encoder with bands/include_input, or with
 // ipe_radii (B,) its integrated form (K4; N >= 2). Otherwise the k-planes
 // encoder of the packed tables (kplanes_encode.cuh: make_kp_args), its
@@ -439,3 +500,4 @@ extern "C" int nerf_fused_raymarch(
   if (ipe) return launch_enc<ENC_IPE>(a, P, k, contract, st);
   return launch_enc<ENC_FREQ>(a, P, k, contract, st);
 }
+#endif

@@ -1,5 +1,5 @@
 """Write csrc/wgmma.cuh, the bf16 -> fp32 wgmma wrappers (shared-memory and
-register A operand forms) for N = 64, 128 and 256.
+register A operand forms) for N = 32, 64, 128 and 256.
 
     python nerf_sandbox_tpu_torch/csrc/gen_wgmma.py
 
@@ -9,7 +9,7 @@ out in full; this script does the writing.
 from pathlib import Path
 
 HEAD = '''// Hopper warpgroup matrix multiply-accumulate (wgmma) wrappers, bf16 x bf16
-// -> fp32, m64nNk16 for N = 64, 128, 256: D (64 x N, fp32 in registers) +=
+// -> fp32, m64nNk16 for N = 32, 64, 128, 256: D (64 x N, fp32 in registers) +=
 // A (64 x 16) @ B (16 x N). B is always read from shared memory through a
 // matrix descriptor (K-major, 128-byte swizzle); A comes either from shared
 // memory through a descriptor (ss) or from four 32-bit registers per thread
@@ -75,7 +75,7 @@ struct Wgmma<{N}> {{
 
 
 def render() -> str:
-    return HEAD + "".join(gen(n) for n in (64, 128, 256)) + "\n}  // namespace nerf\n"
+    return HEAD + "".join(gen(n) for n in (32, 64, 128, 256)) + "\n}  // namespace nerf\n"
 
 
 def main():

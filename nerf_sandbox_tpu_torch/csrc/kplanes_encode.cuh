@@ -26,9 +26,13 @@
 // Design: tables in the JAX (R, R, F) layout, so one 8-feature texel is one
 // 16-byte __ldg; one thread per (row, scale), one per (row, lines) and one per
 // (row, hybrid channels + zero padding), so a warp's 32 threads take one kind
-// of task; features in groups of 8 to bound registers. Rows are written
-// through an accessor (row-major for the encode-only entry, wgmma's swizzled
-// layout inside K2) that keeps each 8-column group contiguous.
+// of task; features in groups of V to bound registers, V = 8 when F is a
+// multiple of 8, else the widest of 4, 2, 1 that F (and, for the lines, their
+// first column) allows, so every texel read and row write of a group is one
+// aligned load or store of V bf16 values; the arithmetic per feature is the
+// same for every V. Rows are written through an accessor (row-major for the
+// encode-only entry, wgmma's swizzled layout inside K2) that keeps each
+// 8-column group contiguous.
 #pragma once
 
 #include "common.cuh"
@@ -53,10 +57,17 @@ struct KpArgs {
   const bf16* line[3];                   // x, y, z: (L, Fl)
   int res[KP_MAX_SCALES];
   int n_scales, F, L, Fl, tfold;
+  int vf, vl;                            // features per load: planes, lines
   float box;                             // 2 * aabb_scale
   float bands[KP_MAX_BANDS];             // hybrid bands
   int n_bands;                           // 0: no hybrid channels
 };
+
+// The most bf16 values (8, 4, 2 or 1) that divide n: the width of one load
+// or store of a feature group.
+__host__ __device__ inline int vec_width(int n) {
+  return (n & 7) == 0 ? 8 : (n & 3) == 0 ? 4 : (n & 1) == 0 ? 2 : 1;
+}
 
 // The packed tables (ops/kplanes_encode.py:pack_kplanes): element offsets
 // into one bf16 buffer, planes per scale, then folds per scale (4-D only),
@@ -65,14 +76,13 @@ inline bool make_kp_args(KpArgs& k, const void* pack, const long long* offsets,
                          const int* res, int n_scales, int F, int L, int Fl,
                          int tfold, float box, const float* bands,
                          int n_bands) {
-  if (pack == nullptr || n_scales < 1 || n_scales > KP_MAX_SCALES || F < 8 ||
-      F % 8 != 0 || Fl < 8 || Fl % 8 != 0 || L < 2 || n_bands < 0 ||
-      n_bands > KP_MAX_BANDS || !(box > 0.0f))
+  if (pack == nullptr || n_scales < 1 || n_scales > KP_MAX_SCALES || F < 1 ||
+      Fl < 1 || L < 2 || n_bands < 0 || n_bands > KP_MAX_BANDS || !(box > 0.0f))
     return false;
   const bf16* base = static_cast<const bf16*>(pack);
   const int n_tables = 3 * n_scales * (tfold ? 2 : 1) + 3;
   for (int i = 0; i < n_tables; ++i)
-    if (offsets[i] % 8 != 0) return false;     // 16-byte texel loads
+    if (offsets[i] % 8 != 0) return false;     // up to 16-byte texel loads
   int t = 0;
   for (int s = 0; s < KP_MAX_SCALES; ++s) {
     k.res[s] = s < n_scales ? res[s] : 0;
@@ -87,6 +97,9 @@ inline bool make_kp_args(KpArgs& k, const void* pack, const long long* offsets,
       for (int d = 0; d < 3; ++d) k.fold[s][d] = base + offsets[t++];
   for (int d = 0; d < 3; ++d) k.line[d] = base + offsets[t++];
   k.n_scales = n_scales; k.F = F; k.L = L; k.Fl = Fl; k.tfold = tfold;
+  // a plane group starts at column s*F, a line group at n_scales*F + f0
+  k.vf = vec_width(F);
+  k.vl = vec_width(Fl | (n_scales * F));
   k.box = box;
   for (int i = 0; i < KP_MAX_BANDS; ++i) k.bands[i] = i < n_bands ? bands[i] : 0.0f;
   k.n_bands = n_bands;
@@ -116,38 +129,71 @@ __device__ __forceinline__ Hat hat(float x01, int R) {
   return h;
 }
 
-// v[e] = features [f0, f0+8) of one texel: one 16-byte read-only load.
-__device__ __forceinline__ void load8(float (&v)[8], const bf16* __restrict__ p) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+// v[e] = features [f0, f0+V) of one texel: one read-only load of V bf16
+// values (16 bytes at V = 8), p aligned to V values.
+template <int V>
+__device__ __forceinline__ void loadv(float (&v)[V], const bf16* __restrict__ p) {
+  if constexpr (V == 8) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 f = __bfloat1622float2(h[e]);
-    v[2 * e] = f.x;
-    v[2 * e + 1] = f.y;
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      v[2 * e] = f.x;
+      v[2 * e + 1] = f.y;
+    }
+  } else if constexpr (V == 4) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      v[2 * e] = f.x;
+      v[2 * e + 1] = f.y;
+    }
+  } else if constexpr (V == 2) {
+    const unsigned int u = __ldg(reinterpret_cast<const unsigned int*>(p));
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+    v[0] = f.x;
+    v[1] = f.y;
+  } else {
+    v[0] = __bfloat162float(
+        __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
   }
 }
 
-// out = w0 * t0 + w1 * t1 over 8 features: the MXU dot of a bf16 hat row
+// out = w0 * t0 + w1 * t1 over V features: the MXU dot of a bf16 hat row
 // with a bf16 table column (both products exact in fp32, one rounding).
-__device__ __forceinline__ void lerp8(float (&out)[8], const bf16* t0,
+template <int V>
+__device__ __forceinline__ void lerpv(float (&out)[V], const bf16* t0,
                                       const bf16* t1, float w0, float w1) {
-  float a[8], b[8];
-  load8(a, t0);
-  load8(b, t1);
+  float a[V], b[V];
+  loadv<V>(a, t0);
+  loadv<V>(b, t1);
 #pragma unroll
-  for (int e = 0; e < 8; ++e) out[e] = __fmaf_rn(w1, b[e], __fmul_rn(w0, a[e]));
+  for (int e = 0; e < V; ++e) out[e] = __fmaf_rn(w1, b[e], __fmul_rn(w0, a[e]));
 }
 
-__device__ __forceinline__ void store8(bf16* dst, const float (&v)[8]) {
-  __align__(16) bf16 b[8];
+// V values rounded to bf16, one aligned store of V bf16 values.
+template <int V>
+__device__ __forceinline__ void storev(bf16* dst, const float (&v)[V]) {
+  __align__(16) bf16 b[V];
 #pragma unroll
-  for (int e = 0; e < 8; ++e) b[e] = __float2bfloat16_rn(v[e]);
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(b);
+  for (int e = 0; e < V; ++e) b[e] = __float2bfloat16_rn(v[e]);
+  if constexpr (V == 8) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(b);
+  } else if constexpr (V == 4) {
+    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(b);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<unsigned int*>(dst) = *reinterpret_cast<const unsigned int*>(b);
+  } else {
+    *dst = b[0];
+  }
 }
 
-// Scale s of row q: F features at columns [c0, c0 + F), c0 % 8 == 0.
-template <class Out>
+// Scale s of row q: F features at columns [c0, c0 + F), c0 % V == 0, in
+// groups of V (a divisor of F).
+template <int V, class Out>
 __device__ __forceinline__ void kp_scale(const KpArgs& k, int s,
                                          const float (&x01)[3], const Out& out,
                                          int q, int c0) {
@@ -155,8 +201,8 @@ __device__ __forceinline__ void kp_scale(const KpArgs& k, int s,
   Hat h[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) h[d] = hat(x01[d], R);
-  for (int f0 = 0; f0 < F; f0 += 8) {
-    float prod[8];
+  for (int f0 = 0; f0 < F; f0 += V) {
+    float prod[V];
 #pragma unroll
     for (int p = 0; p < 3; ++p) {
       const int da = p < 2 ? 0 : 1, db = p == 0 ? 1 : 2;
@@ -164,13 +210,13 @@ __device__ __forceinline__ void kp_scale(const KpArgs& k, int s,
       const size_t r0 = size_t(h[da].i0) * R, r1 = r0 + R;
       const int j0 = h[db].i0;
       // contract axis da at columns j0 and j0+1, then axis db
-      float a0[8], a1[8];
-      lerp8(a0, P + (r0 + j0) * F + f0, P + (r1 + j0) * F + f0, h[da].w0,
-            h[da].w1);
-      lerp8(a1, P + (r0 + j0 + 1) * F + f0, P + (r1 + j0 + 1) * F + f0,
-            h[da].w0, h[da].w1);
+      float a0[V], a1[V];
+      lerpv<V>(a0, P + (r0 + j0) * F + f0, P + (r1 + j0) * F + f0, h[da].w0,
+               h[da].w1);
+      lerpv<V>(a1, P + (r0 + j0 + 1) * F + f0, P + (r1 + j0 + 1) * F + f0,
+               h[da].w0, h[da].w1);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
+      for (int e = 0; e < V; ++e) {
         const float f = __fadd_rn(__fmul_rn(h[db].w0, a0[e]),
                                   __fmul_rn(h[db].w1, a1[e]));
         prod[e] = p == 0 ? f : __fmul_rn(prod[e], f);
@@ -180,42 +226,67 @@ __device__ __forceinline__ void kp_scale(const KpArgs& k, int s,
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
         const bf16* T = k.fold[s][d];
-        float tf[8];
-        lerp8(tf, T + size_t(h[d].i0) * F + f0, T + size_t(h[d].i0 + 1) * F + f0,
-              h[d].w0, h[d].w1);
+        float tf[V];
+        lerpv<V>(tf, T + size_t(h[d].i0) * F + f0, T + size_t(h[d].i0 + 1) * F + f0,
+                 h[d].w0, h[d].w1);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) prod[e] = __fmul_rn(prod[e], tf[e]);
+        for (int e = 0; e < V; ++e) prod[e] = __fmul_rn(prod[e], tf[e]);
       }
     }
-    store8(out.at(q, c0 + f0), prod);
+    storev<V>(out.at(q, c0 + f0), prod);
   }
 }
 
-// The CP lines of row q: Fl features at columns [c0, c0 + Fl).
-template <class Out>
+// The CP lines of row q: Fl features at columns [c0, c0 + Fl), in groups of
+// V (a divisor of Fl and of c0).
+template <int V, class Out>
 __device__ __forceinline__ void kp_lines(const KpArgs& k, const float (&x01)[3],
                                          const Out& out, int q, int c0) {
   const int Fl = k.Fl;
   Hat h[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) h[d] = hat(x01[d], k.L);
-  for (int f0 = 0; f0 < Fl; f0 += 8) {
-    float prod[8];
+  for (int f0 = 0; f0 < Fl; f0 += V) {
+    float prod[V];
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      float v[8];
-      lerp8(v, k.line[d] + size_t(h[d].i0) * Fl + f0,
-            k.line[d] + size_t(h[d].i0 + 1) * Fl + f0, h[d].w0, h[d].w1);
+      float v[V];
+      lerpv<V>(v, k.line[d] + size_t(h[d].i0) * Fl + f0,
+               k.line[d] + size_t(h[d].i0 + 1) * Fl + f0, h[d].w0, h[d].w1);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) prod[e] = d == 0 ? v[e] : __fmul_rn(prod[e], v[e]);
+      for (int e = 0; e < V; ++e) prod[e] = d == 0 ? v[e] : __fmul_rn(prod[e], v[e]);
     }
-    store8(out.at(q, c0 + f0), prod);
+    storev<V>(out.at(q, c0 + f0), prod);
+  }
+}
+
+// The group width V of a task, a template argument.
+template <class Out>
+__device__ __forceinline__ void kp_scale_any(const KpArgs& k, int s,
+                                             const float (&x01)[3], const Out& out,
+                                             int q, int c0) {
+  switch (k.vf) {
+    case 8: kp_scale<8>(k, s, x01, out, q, c0); break;
+    case 4: kp_scale<4>(k, s, x01, out, q, c0); break;
+    case 2: kp_scale<2>(k, s, x01, out, q, c0); break;
+    default: kp_scale<1>(k, s, x01, out, q, c0); break;
+  }
+}
+template <class Out>
+__device__ __forceinline__ void kp_lines_any(const KpArgs& k, const float (&x01)[3],
+                                             const Out& out, int q, int c0) {
+  switch (k.vl) {
+    case 8: kp_lines<8>(k, x01, out, q, c0); break;
+    case 4: kp_lines<4>(k, x01, out, q, c0); break;
+    case 2: kp_lines<2>(k, x01, out, q, c0); break;
+    default: kp_lines<1>(k, x01, out, q, c0); break;
   }
 }
 
 // The hybrid channels [u, sin(f u).., cos(f u)..] of u = 2*x01-1 (the
 // frequency encoder's column order), then zeros, over columns [c0, end) of
-// row q (c0 % 8 == 0).
+// row q (any c0; the zeros go as 16-byte stores from the first 8-aligned
+// column).
 template <class Out>
 __device__ __forceinline__ void kp_hybrid_and_pad(const KpArgs& k,
                                                   const float (&x01)[3],
@@ -267,9 +338,9 @@ __device__ __forceinline__ void kplanes_encode_rows(const KpArgs& k,
       x01[d] = fminf(fmaxf(__fadd_rn(__fdiv_rn(pts[q * 3 + d], k.box), 0.5f),
                            0.0f), 1.0f);
     if (kind < k.n_scales)
-      kp_scale(k, kind, x01, out, q, kind * k.F);
+      kp_scale_any(k, kind, x01, out, q, kind * k.F);
     else if (kind == k.n_scales)
-      kp_lines(k, x01, out, q, c_line);
+      kp_lines_any(k, x01, out, q, c_line);
     else
       kp_hybrid_and_pad(k, x01, out, q, c_hyb, EP);
   }

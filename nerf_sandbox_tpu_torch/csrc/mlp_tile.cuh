@@ -50,6 +50,25 @@
 //    registers, the packed activations 64). The roles are read through a
 //    warp shuffle so that the compiler sees them warp-uniform and keeps the
 //    wgmmas asynchronous.
+//
+// Hidden widths 384 and 512 (the wide path): a 64 x H accumulator would need
+// H/2 registers a thread, more than CONSUMER_REGS leaves, so each consumer
+// warpgroup keeps its 64 x H bf16 activations in shared memory (act,
+// swizzled like enc, 64 KiB at H = 512) and every layer reads its A operand
+// from there through descriptors. A
+// layer runs in chunks of NCW = 32 output columns: a 64 x 32 fp32
+// accumulator (16 registers); the chunk's bias/relu/bf16 epilogue keeps its
+// packed result in registers (8 a chunk, up to 16 chunks held: 128
+// registers at H = 512); after the layer's last wgmma every chunk is written
+// back over act in place, then fence_async_smem and the warpgroup's own
+// barrier (act is the warpgroup's own, so no block-wide barrier). The
+// weights stream as 64 (K) x 32 (N) stages of 4 KiB, in (layer, n-chunk,
+// k-chunk) order (stage_weights), so the ring holds up to 8 stages beside
+// 2 x 64 KiB of activations. Sigma and the colour head read the held chunks.
+// With 64-column chunks (a 32-register accumulator) the H = 512 builds
+// spilled a few registers and K1's serialized its wgmmas; 32 leaves room.
+// The H = 128 / 256 path does not share this code: the wide path is selected
+// at compile time (H > 256), one instantiation per width.
 #pragma once
 
 #include "common.cuh"
@@ -70,6 +89,17 @@ constexpr int CONSUMER_REGS = 240;
 constexpr int PRODUCER_REGS = 24;
 constexpr size_t SMEM_LIMIT = 232448;                // per block, after opt-in
 constexpr int BAR_CONSUMERS = 3;                     // ids 1, 2: one per warpgroup
+
+// The wide path (H = 384 or 512): the output columns of one chunk of a
+// layer, and the weight stage of one chunk.
+constexpr int NCW = 32;
+constexpr uint32_t WIDE_STAGE_BYTES = uint32_t(KC) * NCW * 2;
+
+// Bytes of one weight stage: 64 K rows of the whole width H, or of NCW
+// columns on the wide path.
+__host__ __device__ inline uint32_t stage_bytes(int H, bool wide) {
+  return wide ? WIDE_STAGE_BYTES : uint32_t(KC) * H * 2;
+}
 
 // Packed weight arrays, in the order of PACK_FIELDS in ops/fused_mlp.py;
 // the host passes each array's element offset into one bf16 buffer.
@@ -110,15 +140,19 @@ __host__ __device__ inline PrmOffsets prm_offsets(int H, int n_layers) {
 // stages and the A blocks are multiples of 1024 bytes (the 128-byte swizzle
 // repeats every 8 rows of 128 bytes); `extra` is the calling kernel's own.
 struct MlpLayout {
-  size_t ring, enc[N_CONSUMERS], ed[N_CONSUMERS], out[N_CONSUMERS];
+  size_t ring, enc[N_CONSUMERS], ed[N_CONSUMERS], out[N_CONSUMERS], act[N_CONSUMERS];
   size_t prm, bars, extra, total;
   __host__ __device__ MlpLayout(int H, int EP, int EDP, int n_layers, int NS,
-                                size_t extra_bytes) {
+                                size_t extra_bytes, bool wide) {
     size_t o = 0;
-    ring = o;   o += NS * size_t(KC) * H * 2;
+    ring = o;   o += NS * size_t(stage_bytes(H, wide));
     for (int w = 0; w < N_CONSUMERS; ++w) { enc[w] = o; o += (EP / KC) * A_CHUNK_BYTES; }
     for (int w = 0; w < N_CONSUMERS; ++w) { ed[w] = o; o += (EDP / KC) * A_CHUNK_BYTES; }
     for (int w = 0; w < N_CONSUMERS; ++w) { out[w] = o; o += WG_ROWS * 4 * sizeof(float); }
+    for (int w = 0; w < N_CONSUMERS; ++w) {   // wide path: 64 x H activations
+      act[w] = o;
+      if (wide) o += (H / KC) * A_CHUNK_BYTES;
+    }
     prm = o;    o += ((prm_offsets(H, n_layers).total * 2 + 15) & ~size_t(15));
     bars = o;   o += (2 * MAX_STAGES + 2) * 8;
     extra = o;  o += extra_bytes;
@@ -131,6 +165,7 @@ struct MlpSmem {
   bf16* enc[N_CONSUMERS];
   bf16* ed[N_CONSUMERS];
   float* out[N_CONSUMERS];                  // per row: r, g, b logits, sigma logit
+  bf16* act[N_CONSUMERS];                   // wide path: the hidden activations
   const bf16* prm;
   int* done;                                // set once the consumers are finished
   unsigned char* extra;
@@ -278,9 +313,10 @@ __device__ __forceinline__ int launder(int x) {
 
 // The block's shared memory, carved from the layout of P (each role does
 // this itself after the split).
+template <bool WIDE>
 __device__ inline MlpSmem mlp_carve(unsigned char* raw, const MlpArgs& P) {
   const MlpLayout L(launder(P.H), launder(P.EP), launder(P.EDP),
-                    launder(P.n_layers), launder(P.NS), 0);
+                    launder(P.n_layers), launder(P.NS), 0, WIDE);
   const uint32_t a = launder(static_cast<int>(smem_addr(raw)));
   unsigned char* base = raw + ((1024 - (a & 1023)) & 1023);
   MlpSmem S;
@@ -290,6 +326,7 @@ __device__ inline MlpSmem mlp_carve(unsigned char* raw, const MlpArgs& P) {
     S.enc[w] = reinterpret_cast<bf16*>(base + L.enc[w]);
     S.ed[w] = reinterpret_cast<bf16*>(base + L.ed[w]);
     S.out[w] = reinterpret_cast<float*>(base + L.out[w]);
+    S.act[w] = reinterpret_cast<bf16*>(base + L.act[w]);
   }
   bf16* prm = reinterpret_cast<bf16*>(base + L.prm);
   S.prm = prm;
@@ -300,8 +337,9 @@ __device__ inline MlpSmem mlp_carve(unsigned char* raw, const MlpArgs& P) {
 
 // Called by all N_THREADS threads first: copies the biases and the sigma /
 // rgb head vectors to shared memory, initialises the barriers.
+template <bool WIDE>
 __device__ inline void mlp_setup(unsigned char* raw, const MlpArgs& P) {
-  const MlpSmem S = mlp_carve(raw, P);
+  const MlpSmem S = mlp_carve<WIDE>(raw, P);
   bf16* prm = const_cast<bf16*>(S.prm);
   const int H = P.H, tid = threadIdx.x;
   const PrmOffsets o = prm_offsets(H, P.n_layers);
@@ -337,17 +375,25 @@ __host__ __device__ inline int trunk_chunks(int H, int EP, int n_layers) {
 __host__ __device__ inline int stream_chunks(int H, int EP, int EDP, int n_layers) {
   return trunk_chunks(H, EP, n_layers) + H / KC + EDP / KC;
 }
+// The wide path's stream: the same weights in 64 x NCW stages, each trunk
+// array cut into H / NCW column chunks and the colour head's into H / 2 / NCW.
+__host__ __device__ inline int wide_stream_chunks(int H, int EP, int EDP, int n_layers) {
+  return (H / NCW) * trunk_chunks(H, EP, n_layers) + (H / 2 / NCW) * ((H + EDP) / KC);
+}
 
 // The producer warpgroup: one thread refills each stage as soon as all
 // consumer warps have released it, cycling through the stream, until the
 // consumers are done; the other threads leave.
+template <bool WIDE>
 __device__ inline void mlp_produce(unsigned char* raw, const MlpArgs& P) {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
   if (threadIdx.x != N_CONSUMER_THREADS) return;
-  const MlpSmem S = mlp_carve(raw, P);
-  const int n_trunk = trunk_chunks(P.H, P.EP, P.n_layers);
-  const int n_chunks = stream_chunks(P.H, P.EP, P.EDP, P.n_layers);
-  const uint32_t tbytes = uint32_t(KC) * P.H * 2, cbytes = tbytes / 2;
+  const MlpSmem S = mlp_carve<WIDE>(raw, P);
+  const int n_trunk = WIDE ? 0 : trunk_chunks(P.H, P.EP, P.n_layers);
+  const int n_chunks = WIDE ? wide_stream_chunks(P.H, P.EP, P.EDP, P.n_layers)
+                                 : stream_chunks(P.H, P.EP, P.EDP, P.n_layers);
+  const uint32_t tbytes = WIDE ? WIDE_STAGE_BYTES : uint32_t(KC) * P.H * 2;
+  const uint32_t cbytes = WIDE ? WIDE_STAGE_BYTES : tbytes / 2;
   const char* src = reinterpret_cast<const char*>(P.staged);
   volatile int* done = S.done;
   int c = 0, s = 0;
@@ -385,8 +431,8 @@ struct Pipe {
   uint32_t ring, bars, sbytes;
   int NS, s;
   uint32_t ph;
-  __device__ Pipe(const MlpSmem& S, const MlpArgs& P)
-      : ring(S.ring), bars(S.bars), sbytes(uint32_t(KC) * P.H * 2), NS(P.NS),
+  __device__ Pipe(const MlpSmem& S, const MlpArgs& P, bool wide)
+      : ring(S.ring), bars(S.bars), sbytes(stage_bytes(P.H, wide)), NS(P.NS),
         s(0), ph(0) {}
   // Wait for the next stage; → its shared address (stage index in st).
   __device__ __forceinline__ uint32_t acquire(int& st) {
@@ -575,15 +621,192 @@ __device__ __forceinline__ void mlp_pass(const MlpArgs& P, const MlpSmem& S, int
   }
 }
 
+// ---- the wide path: one warpgroup's 64 rows at H = 384 or 512 ----
+
+// acc (64 x NCW) = A0 (64 x 64 n0, shared at a0) @ W + A1 (64 x 64 n1, shared
+// at a1) @ W', the n0 + n1 weight stages of one output chunk taken from the
+// ring in order (n0 + n1 >= 1, both warp-uniform).
+__device__ __forceinline__ void mma_wide_chunk(float* acc, uint32_t a0, int n0,
+                                               uint32_t a1, int n1, Pipe& P) {
+  wgmma_fence();
+  int prev = -1, scale = 0;
+  for (int c = 0; c < n0; ++c) {
+    int st;
+    const uint64_t db = sdesc(P.acquire(st));
+    const uint64_t da = sdesc(a0 + c * A_CHUNK_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      Wgmma<NCW>::ss(acc, da + 2 * kk, db + 2 * kk, scale);
+      scale = 1;
+    }
+    wgmma_commit();
+    if (c > 0) {
+      wgmma_wait<1>();
+      P.release(prev);
+    }
+    prev = st;
+  }
+  for (int c = 0; c < n1; ++c) {
+    int st;
+    const uint64_t db = sdesc(P.acquire(st));
+    const uint64_t da = sdesc(a1 + c * A_CHUNK_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      Wgmma<NCW>::ss(acc, da + 2 * kk, db + 2 * kk, scale);
+      scale = 1;
+    }
+    wgmma_commit();
+    if (n0 > 0 || c > 0) {
+      wgmma_wait<1>();
+      P.release(prev);
+    }
+    prev = st;
+  }
+  wgmma_wait<0>();
+  P.release(prev);
+  fence_regs<NCW / 2>(acc);
+}
+
+// One wide layer: for each of the NCH output chunks c, held[c] =
+// bf16(act(A @ W[:, chunk c] + bias)) in the epilogue's register layout.
+template <bool RELU, int NCH>
+__device__ __forceinline__ void wide_layer(uint32_t (&held)[NCH][NCW / 4], uint32_t a0,
+                                           int n0, uint32_t a1, int n1,
+                                           const bf16* bias, Pipe& P) {
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    float acc[NCW / 2];
+    mma_wide_chunk(acc, a0, n0, a1, n1, P);
+    epilogue<NCW, RELU>(acc, held[c], bias + NCW * c);
+  }
+}
+
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
+}
+
+// The held chunks over the warpgroup's activations at shared address act
+// (64 x H, swizzled), once every warp's wgmmas have read them; then visible
+// to wgmma. Rows r and r + 8 share their swizzle: unit j of a chunk's 64
+// columns sits at (j ^ (r % 8)) * 16 bytes in the row.
+template <int NCH>
+__device__ __forceinline__ void wide_store(uint32_t act,
+                                           const uint32_t (&held)[NCH][NCW / 4], int wg) {
+  const int lane = threadIdx.x & 31;
+  const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2), c2 = 2 * (lane & 3);
+  wg_sync(wg);
+  const uint32_t base = uint32_t(launder(int(act) + 2 * (r * KC + c2)));
+  const uint32_t rx = uint32_t(r & 7) << 4;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+    for (int j = 0; j < NCW / 8; ++j) {
+      const uint32_t a = base + (NCW * c / KC) * A_CHUNK_BYTES +
+                         ((uint32_t(NCW * c % KC / 8 + j) << 4) ^ rx);
+      st_shared_b32(a, held[c][2 * j]);
+      st_shared_b32(a + 8 * KC * 2, held[c][2 * j + 1]);
+    }
+  }
+  fence_async_smem();
+  wg_sync(wg);
+}
+
+// mlp_pass for hidden width H = NCH * NCW (384 or 512): the same layers,
+// rounding points and outputs, with the activations in S.act[wg] and each
+// layer in NCH chunks of NCW columns.
+template <int NCH>
+__device__ __forceinline__ void mlp_pass_wide(const MlpArgs& P, const MlpSmem& S,
+                                              int wg, Pipe& pipe) {
+  constexpr int H = NCH * NCW, kh = H / KC;
+  const bf16* prm = S.prm;
+  const uint32_t enc = smem_addr(S.enc[wg]), ed = smem_addr(S.ed[wg]);
+  const uint32_t act = smem_addr(S.act[wg]);
+  const int ke = __shfl_sync(0xffffffffu, P.EP / KC, 0);
+  const int kd = __shfl_sync(0xffffffffu, P.EDP / KC, 0);
+  const int n_layers = __shfl_sync(0xffffffffu, P.n_layers, 0);
+  const int skip = __shfl_sync(0xffffffffu, P.skip_pos, 0);
+  uint32_t held[NCH][NCW / 4];
+  wide_layer<true, NCH>(held, enc, ke, 0, 0, prm + prm_offsets(H, n_layers).b0, pipe);
+  wide_store<NCH>(act, held, wg);
+  for (int l = 1; l < n_layers; ++l) {
+    const bool is_skip = l == skip;
+    const PrmOffsets o = prm_offsets(H, n_layers);
+    wide_layer<true, NCH>(held, act, kh, enc, is_skip ? ke : 0,
+                          prm + (is_skip ? o.bskip : o.b_mid + H * (l - 1 - (l > skip))),
+                          pipe);
+    wide_store<NCH>(act, held, wg);
+  }
+  const PrmOffsets o = prm_offsets(H, n_layers);
+  const int lane = threadIdx.x & 31;
+  const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  float* out = S.out[wg];
+  {
+    // sigma from the last trunk activation, still held in registers
+    float sg0 = 0.0f, sg1 = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      float a, b;
+      row_dots<NCW>(held[c], prm + o.w_sig + NCW * c, a, b);
+      sg0 += a;
+      sg1 += b;
+    }
+    if ((lane & 3) == 0) {
+      const float bs = __bfloat162float(prm[o.b_sig]);
+      out[r * 4 + 3] = sg0 + bs;
+      out[(r + 8) * 4 + 3] = sg1 + bs;
+    }
+  }
+  wide_layer<false, NCH>(held, act, kh, 0, 0, prm + o.b_feat, pipe);  // feature
+  wide_store<NCH>(act, held, wg);
+  // the colour head (width H/2) on [feature, enc_dir], one chunk at a time
+  float rgb[3][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+  for (int c = 0; c < NCH / 2; ++c) {
+    float acc[NCW / 2];
+    uint32_t hc[NCW / 4];
+    mma_wide_chunk(acc, act, kh, ed, kd, pipe);
+    epilogue<NCW, true>(acc, hc, prm + o.bc1 + NCW * c);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float a, b;
+      row_dots<NCW>(hc, prm + o.wc2t + k * (H / 2) + NCW * c, a, b);
+      rgb[k][0] += a;
+      rgb[k][1] += b;
+    }
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float b = __bfloat162float(prm[o.bc2 + k]);
+      out[r * 4 + k] = rgb[k][0] + b;
+      out[(r + 8) * 4 + k] = rgb[k][1] + b;
+    }
+  }
+}
+
+// The pass of a kernel instantiated for hidden width H.
+template <int H>
+__device__ __forceinline__ void mlp_pass_any(const MlpArgs& P, const MlpSmem& S,
+                                             int wg, Pipe& pipe) {
+  if constexpr (H > 256)
+    mlp_pass_wide<H / NCW>(P, S, wg, pipe);
+  else
+    mlp_pass<H>(P, S, wg, pipe);
+}
+
 // ---- host side ----
 
-// The shapes the kernels take: hidden width 128 or 256 (one accumulator of
-// at most 256 columns; ops/fused_mlp.py raises for the others on CUDA), EP a
-// multiple of 64, ED of 16, one skip layer inside the trunk.
+// The shapes the kernels take: hidden width 128 or 256 (one accumulator in
+// registers) or 384 or 512 (the wide path; ops/fused_mlp.py raises for the
+// others on CUDA), EP a multiple of 64, ED of 16, one skip layer inside the
+// trunk.
 inline bool mlp_shape_ok(int H, int EP, int ED, int n_layers, int skip_pos) {
-  return (H == 128 || H == 256) && EP > 0 && EP % KC == 0 && ED > 0 &&
-         ED % 16 == 0 && n_layers >= 3 && skip_pos > 0 && skip_pos < n_layers;
+  return (H == 128 || H == 256 || H == 384 || H == 512) && EP > 0 && EP % KC == 0 &&
+         ED > 0 && ED % 16 == 0 && n_layers >= 3 && skip_pos > 0 && skip_pos < n_layers;
 }
+
+// Hidden widths that take the wide path.
+inline bool is_wide(int H) { return H > 256; }
 
 inline MlpArgs make_mlp_args(const void* wpack, const long long* offsets,
                              const void* staged, int H, int EP, int ED,
@@ -601,7 +824,7 @@ inline MlpArgs make_mlp_args(const void* wpack, const long long* offsets,
 // the rest; → the block's dynamic shared memory, 0 if not even two fit.
 inline size_t plan_stages(MlpArgs& a, size_t extra_bytes) {
   for (int ns = MAX_STAGES; ns >= 2; --ns) {
-    const MlpLayout L(a.H, a.EP, a.EDP, a.n_layers, ns, extra_bytes);
+    const MlpLayout L(a.H, a.EP, a.EDP, a.n_layers, ns, extra_bytes, is_wide(a.H));
     if (L.total <= SMEM_LIMIT) {
       a.NS = ns;
       return L.total;

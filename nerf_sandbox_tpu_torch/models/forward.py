@@ -12,7 +12,7 @@ times for 4-D grids), the MLP in ``compute_dtype``, sigmoid rgb,
 relu/softplus sigma, then ``volume_render_rays``. ``use_kernel=True`` routes
 the MLP to the K1 kernel (``ops/fused_mlp.py``) as the JAX ``use_pallas``
 does, and the k-planes encode to K3's encode-only kernel
-(``ops/kplanes_encode.py``, bf16 rows).
+(``ops/kplanes_encode.py``, bf16 rows) when all rays share one time.
 
 The encoders and options of the JAX function that are not ported raise.
 """
@@ -81,7 +81,8 @@ def nerf_forward_pass(
 
     Runs on ``cuda`` unless ``device="cpu"``; the model must be on that
     device. ``use_kernel=True`` runs the MLP through K1 (bf16) and a k-planes
-    encode through K3, which folds a 4-D grid at one time (all ``t`` equal).
+    encode through K3, which folds a 4-D grid at one time; rays of a 4-D grid
+    at different times are encoded per sample in plain PyTorch, as JAX does.
     ``ipe=True`` needs the frequency encoder and per-ray ``radii``.
     """
     check_ported_forward(pos_encoder=pos_encoder, ipe=ipe,
@@ -173,7 +174,11 @@ def _kplanes_rows(model: NeRFMLP, pts: torch.Tensor, enc_cfg, t, B: int,
         if t is None:
             raise ValueError("4-D k-planes (time_res > 0) needs per-ray times t")
         t_ray = t.to(dev, torch.float32).reshape(B)
-    if use_kernel:
+    # Rays at one time fold the grid once and take K3's encode-only entry.
+    # Per-ray times are encoded per sample, as JAX's use_pallas path does
+    # through XLA (it runs no kernel for this encode); the MLP stays on K1.
+    one_time = t_ray is None or bool(torch.all(t_ray == t_ray.reshape(-1)[:1]))
+    if use_kernel and one_time:
         ep_pad, _ = _enc_pads(model.cfg)
         rows = fused_kplanes_encode(pack_kplanes(grid, enc_cfg, t=t_ray), pts,
                                     ep_pad, device=dev)

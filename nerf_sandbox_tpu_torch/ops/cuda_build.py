@@ -5,7 +5,10 @@ library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Builds happen at first use, into
 ``build/`` at the repository root (listed in ``.gitignore``); the library's
 file name carries a hash of its sources and flags, so an edited source is
-rebuilt. :func:`build_all` starts one ``nvcc`` per source, all at once.
+rebuilt. :func:`build_all` starts one ``nvcc`` per source (per part of a
+source that is built in parts, :data:`PARTS`), all at once, and
+keeps each compiler report (``-Xptxas -v``: registers, spills, notes) beside
+its library, so that :func:`build_log` reads it for a cached build too.
 
 Fast math is deliberately off: ``--use_fast_math`` turns ``sinf``/``cosf``
 into ``__sinf``/``__cosf``, which are wrong at the thousands of radians the
@@ -28,6 +31,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("fused_mlp", "fused_raymarch", "kplanes_encode", "precision_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Sources compiled in parts (-DNERF_PART=0..n-1), all at once, then linked
+# into one library: K2's 24 instantiations in twelve groups of two
+# (csrc/fused_raymarch.cu), which would take minutes in one compiler.
+PARTS = {"fused_raymarch": 12}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -51,29 +58,62 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def _log_path(name: str) -> Path:
+    return _lib_path(name).with_suffix(".log")
+
+
+def build_log(name: str) -> str:
+    """The compiler report of the built library of ``csrc/<name>.cu``, or
+    "" if it has not been built."""
+    path = _log_path(name)
+    return path.read_text() if path.exists() else ""
+
+
 def build_all(names=SOURCES) -> dict:
-    """Compile every named source not yet built, one ``nvcc`` each, all in
-    parallel. → {name: {"seconds": s, "ptxas": compiler report}}. Raises
-    with the compiler's output if any build fails."""
+    """Compile every named source not yet built, one ``nvcc`` each (one per
+    part for :data:`PARTS`, then a link), all in parallel. → {name:
+    {"seconds": wall seconds until its library was done, "ptxas": compiler
+    report}}. Raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    procs = {}
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"] + ["-c"]
+    jobs = {}
+    t0 = time.perf_counter()
     for name in names:
         out = _lib_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
+        src = str(CSRC / f"{name}.cu")
+        if name in PARTS:
+            objs = [out.with_suffix(f".{os.getpid()}.{p}.o") for p in range(PARTS[name])]
+            cmds = [[nvcc, *compile_flags, f"-DNERF_PART={p}", "-o", str(o), src]
+                    for p, o in enumerate(objs)]
+        else:
+            objs, cmds = [], [[nvcc, *NVCC_FLAGS, "-o", str(tmp), src]]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for c in cmds]
+        jobs[name] = (procs, objs, tmp, out)
     report, failed = {}, []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
+    for name, (procs, objs, tmp, out) in jobs.items():
+        logs, ok = [], True
+        for proc in procs:
+            log, _ = proc.communicate()
+            logs.append(log)
+            ok = ok and proc.returncode == 0
+        if ok and objs:
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            ok = link.returncode == 0
+        for o in objs:
+            o.unlink(missing_ok=True)
+        log = "".join(logs)
         report[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
-        if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{log}")
+        if not ok:
+            failed.append(f"--- {name} (nvcc failed) ---\n{log}")
             continue
+        _log_path(name).write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

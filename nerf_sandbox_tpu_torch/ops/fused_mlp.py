@@ -8,7 +8,8 @@ of 64 rows that share each weight stage, so the ~1.2 MB of weights come from
 L2 once per ``TILE_M`` = 128 rows; a producer warp streams them into shared
 memory as one bulk copy per stage, from the buffer :func:`stage_weights`
 lays out (design notes in ``csrc/mlp_tile.cuh``). Hidden activations stay
-in registers between layers.
+in registers between layers at hidden widths 128 and 256; at 384 and 512
+they sit in shared memory and each layer runs in chunks of 32 columns.
 
 Rounding points are those of the TPU kernel: bf16 operands, fp32
 accumulation, fp32 add of the bf16-rounded bias, relu then a bf16 cast
@@ -34,7 +35,8 @@ from nerf_sandbox_tpu_torch.ops import cuda_build
 
 TILE_M = 128                 # rows per weight fetch (csrc/mlp_tile.cuh)
 KC = 64                      # K rows of one weight stage (csrc/mlp_tile.cuh)
-KERNEL_HIDDEN = (128, 256)   # hidden widths the CUDA kernels take
+NCW = 32                     # output columns of a wide stage (csrc/mlp_tile.cuh)
+KERNEL_HIDDEN = (128, 256, 384, 512)   # hidden widths the CUDA kernels take
 PLAIN_ROWS = 1 << 18         # row chunk of the plain version (bounds memory)
 _ALIGN = 64                  # packed arrays start on 128-byte boundaries
 
@@ -133,20 +135,20 @@ def pack_nerf_params(model: NeRFMLP) -> PackedMLP:
     return PackedMLP(cfg, flat, tuple(offsets), views, stage_weights(cfg, views))
 
 
-def _stream_arrays(cfg: NeRFConfig, views: dict) -> tuple[list, list]:
-    """The (K, N) weight arrays in the order the kernels' MLP reads them:
-    the trunk's (W0, then per layer W_mid or W_skip_h, W_skip_e, then
-    W_feat), then the colour head's (W_c1's feature rows, its enc_dir rows)."""
+def _stream_layers(cfg: NeRFConfig, views: dict) -> list:
+    """The (K, N) weight arrays of each matmul, in the order the kernels' MLP
+    runs them: W0, then per layer [W_mid] or [W_skip_h, W_skip_e], then
+    W_feat, then the colour head's [W_c1's feature rows, its enc_dir rows]."""
     H = cfg.hidden_dim
-    trunk, mid = [views["w0"]], 0
+    layers, mid = [[views["w0"]]], 0
     for layer in range(1, cfg.n_layers):
         if layer == cfg.skip_pos:
-            trunk += [views["wskip_h"], views["wskip_e"]]
+            layers.append([views["wskip_h"], views["wskip_e"]])
         else:
-            trunk.append(views["w_mid"][mid])
+            layers.append([views["w_mid"][mid]])
             mid += 1
-    trunk.append(views["w_feat"])
-    return trunk, [views["wc1"][:H], views["wc1"][H:]]
+    layers.append([views["w_feat"]])
+    return layers + [[views["wc1"][:H], views["wc1"][H:]]]
 
 
 def _swizzle_index(n: int, device) -> torch.Tensor:
@@ -164,31 +166,52 @@ def _swizzle_rows(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(C, N, 8, 8).gather(2, idx).reshape(C, N, KC)
 
 
+def _stage_array(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) → K zero-padded to a multiple of 64, cut into 64-row chunks,
+    each transposed to N rows of 64 K values (K-major) and swizzled; flat."""
+    K, N = w.shape
+    kp = -(-K // KC) * KC
+    wp = torch.zeros((kp, N), dtype=torch.bfloat16, device=w.device)
+    wp[:K] = w
+    chunks = wp.reshape(kp // KC, KC, N).transpose(1, 2)
+    return _swizzle_rows(chunks).reshape(-1)
+
+
 def stage_weights(cfg: NeRFConfig, views: dict) -> torch.Tensor:
-    """The weight stream of the CUDA kernels: each (K, N) array of
-    :func:`_stream_arrays`, K zero-padded to a multiple of 64, cut into
-    64-row chunks, each chunk transposed to N rows of 64 K values (K-major)
-    and swizzled, so that one chunk is one contiguous bulk copy in the
-    layout wgmma reads. → a flat bf16 tensor (chunks back to back)."""
-    trunk, colour = _stream_arrays(cfg, views)
-    parts = []
-    for w in trunk + colour:
-        K, N = w.shape
-        kp = -(-K // KC) * KC
-        wp = torch.zeros((kp, N), dtype=torch.bfloat16, device=w.device)
-        wp[:K] = w
-        chunks = wp.reshape(kp // KC, KC, N).transpose(1, 2)
-        parts.append(_swizzle_rows(chunks).reshape(-1))
+    """The weight stream of the CUDA kernels, in the order their stages use
+    it, each stage one contiguous bulk copy in the layout wgmma reads
+    (:func:`_stage_array`). Hidden width 128 / 256: each array of
+    :func:`_stream_layers` whole, stages of 64 K rows x N. 384 / 512 (the
+    wide path): per matmul and per chunk of ``NCW`` output columns, the
+    chunk's columns of each of its arrays, stages of 64 x NCW. → a flat bf16
+    tensor (stages back to back)."""
+    layers = _stream_layers(cfg, views)
+    if cfg.hidden_dim <= 256:
+        parts = [_stage_array(w) for layer in layers for w in layer]
+    else:
+        parts = [_stage_array(w[:, n:n + NCW]) for layer in layers
+                 for n in range(0, layer[0].shape[1], NCW) for w in layer]
     return torch.cat(parts)
 
 
 def check_kernel_shape(cfg: NeRFConfig) -> None:
     """Raise for a (fusable) MLP the CUDA kernels do not take, never falling
-    back: their accumulator holds at most 256 columns, so hidden widths are
-    128 or 256."""
-    if cfg.hidden_dim not in KERNEL_HIDDEN:
-        raise ValueError(f"the CUDA kernels take hidden widths {KERNEL_HIDDEN}, "
-                         f"not {cfg.hidden_dim}")
+    back: hidden widths 128 and 256 keep a layer's accumulator in registers,
+    384 and 512 their activations in shared memory (at most 16 chunks of 32
+    columns held in registers); wider ones fit neither."""
+    H = cfg.hidden_dim
+    if H not in KERNEL_HIDDEN:
+        raise ValueError(
+            f"the CUDA kernels take hidden widths {KERNEL_HIDDEN}, not {H}: the "
+            f"wide path holds a layer's 64 x {H} bf16 output in registers until "
+            f"its last chunk is done, {H // 4} registers a thread where 128 (H = "
+            f"512) is the most that leaves the rest of the kernel room in the "
+            f"240 a consumer thread has; and a block's shared memory holds the two "
+            f"warpgroups' activations (2 x 64 x H x 2 bytes = "
+            f"{2 * 64 * H * 2 // 1024} KiB), enc and enc_dir (2 x 64 x (EP + EDP) "
+            f"x 2 bytes), the biases (about (n_layers + 4) x H x 2 bytes), K2's "
+            f"per-ray state (7 KiB) and at least two 4 KiB weight stages, within "
+            f"the 227 KiB a block may have")
 
 
 def as_packed(model) -> PackedMLP:

@@ -20,8 +20,9 @@ rays and loops over their samples 4 at a time, 64 rows per pass of the
 ``wgmma`` MLP (both share each weight stage: 128 rows per fetch from L2),
 with the per-ray accumulators in registers — the TPU's sequential-grid carry
 becomes a loop inside the block — and ERT ends a group once all its rays
-have T < eps. The encoder, the contraction and the hidden width (128 or
-256) are template parameters of the kernel.
+have T < eps. The encoder, the contraction and the hidden width (128, 256,
+384 or 512; the last two on the wide path of ``csrc/mlp_tile.cuh``) are
+template parameters of the kernel.
 
 :func:`fused_raymarch_plain` is the same function in plain PyTorch with the
 kernel's bf16 rounding points; it marches every sample (ERT changes each

@@ -21,7 +21,8 @@ world points (Q, 3) → (Q, EP_PAD) bf16 encoder rows
 
 On the H100 the TPU's one-hot MXU interpolation (2·Q·R²·F FLOPs) becomes four
 texel reads per plane: the bf16 tables (1.03 MB at full width) stay in L2,
-and one 8-feature texel is one 16-byte load. Per sample the encode reads
+and one 8-feature texel is one 16-byte load (other feature widths read and
+write groups of 4, 2 or 1 values, with the same arithmetic). Per sample the encode reads
 about 576 B from L2 and writes EP_PAD·2 bytes; inside K2 the rows stay in
 shared memory. The encode-only launch here (``fused_kplanes_encode``) is the
 same ``__device__`` function over Q rows, written to device memory: bound by
@@ -198,9 +199,8 @@ def check_kernel_shapes(kp: PackedKPlanes, ep_pad: int) -> None:
     cfg = kp.cfg
     if not 1 <= len(cfg.plane_res) <= MAX_SCALES:
         raise ValueError(f"the kernels take 1..{MAX_SCALES} plane scales")
-    if cfg.plane_features % 8 or cfg.line_features % 8:
-        raise ValueError("the kernels take plane and line features in "
-                         "multiples of 8 (one 16-byte texel load each)")
+    if cfg.plane_features < 1 or cfg.line_features < 1:
+        raise ValueError("plane and line features must be >= 1")
     if min(cfg.plane_res) < 2 or cfg.line_res < 2:
         raise ValueError("plane and line resolutions must be >= 2")
     if cfg.hybrid_freqs > MAX_BANDS:

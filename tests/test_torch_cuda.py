@@ -102,10 +102,71 @@ def test_k1_rejects_bad_inputs(cuda):
         fm.fused_nerf_apply(_model(VANILLA, 0, "cpu"), ep, ed)
 
 
+WIDE = {"8x384": NeRFConfig(63, 27, n_layers=8, hidden_dim=384, skip_pos=4),
+        "8x512": NeRFConfig(63, 27, n_layers=8, hidden_dim=512, skip_pos=4)}
+
+
+@pytest.mark.parametrize("wname", WIDE)
+@pytest.mark.parametrize("q", [1, 127, 129, 70000])
+def test_k1_wide_matches_plain(cuda, wname, q):
+    """Hidden widths 384 and 512: the wide path (activations in shared
+    memory, layers in 32-column chunks)."""
+    m = _model(WIDE[wname], 20, cuda)
+    ep, ed = _enc(q, q + 1, cuda)
+    before = fm.fused_nerf_apply.launches
+    got = fm.fused_nerf_apply(m, ep, ed)
+    torch.cuda.synchronize()
+    assert fm.fused_nerf_apply.launches == before + 1
+    want = fm.fused_nerf_apply_plain(fm.pack_nerf_params(m), ep, ed)
+    assert got.shape == (q, 4) and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 0.05
+
+
+K2_ROUTES = ("freq", "freq_contract", "ipe", "ipe_contract", "kplanes",
+             "kplanes_contract")
+
+
+@pytest.mark.parametrize("route", K2_ROUTES)
+@pytest.mark.parametrize("wname", WIDE)
+@pytest.mark.parametrize("b", [1, 33, 16385])
+def test_k2_wide_routes_match_plain(cuda, route, wname, b):
+    """Every K2 route on the wide instantiation, B off the ray groups, N = 63
+    off the passes; a finite last bin, so every ray is held: comp, w and acc
+    at 2e-2, depth as sum(w z) at 2e-2 x z_far. The k-planes routes run the
+    full-width grid (71 columns padded to 128, the tightest shared-memory
+    budget)."""
+    cfg = WIDE[wname]
+    contract = route.endswith("contract")
+    rays = _rays(b, 63, 21, cuda)
+    fr.reset_launches()
+    if route.startswith("kplanes"):
+        m = _kp_model(KP_FULL, 22, cuda, hidden=cfg.hidden_dim)
+        kp = ke.pack_kplanes(m.pos_grid, KP_FULL)
+        got, want, _ = _k2_kp_pair(m, kp, rays, contract, infinite_last_bin=False)
+    elif route.startswith("ipe"):
+        m = _model(cfg, 23, cuda)
+        got, want, _ = _k4_pair(m, rays, _radii(b, 24, cuda), contract,
+                                infinite_last_bin=False)
+    else:
+        m = _model(cfg, 25, cuda)
+        got, want, _ = _k2_pair(m, rays, cuda, infinite_last_bin=False,
+                                scene_contraction=contract)
+    torch.cuda.synchronize()
+    routes = fr.fused_raymarch.route_launches
+    assert fr.fused_raymarch.launches == 1
+    assert routes[route.split("_")[0]] == 1 and routes["contract"] == int(contract)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.shape[0] == b
+        assert torch.isfinite(g).all()
+    for g, w in zip(got[:3], want[:3]):
+        assert float((g - w).abs().max()) <= 2e-2
+    assert float((got[3] * got[2] - want[3] * want[2]).abs().max()) <= 2e-2 * 6.0
+
+
 def test_hidden_width_the_kernels_do_not_take_raises(cuda):
-    """A fusable MLP wider than one 256-column accumulator raises on CUDA (it
+    """A fusable MLP wider than the wide path's 512 columns raises on CUDA (it
     never falls back to the plain version)."""
-    wide = NeRFConfig(63, 27, n_layers=3, hidden_dim=384, skip_pos=1)
+    wide = NeRFConfig(63, 27, n_layers=3, hidden_dim=640, skip_pos=1)
     assert fm.fusable(wide)
     m = _model(wide, 0, cuda)
     ep, ed = _enc(8, 0, cuda)
@@ -314,6 +375,48 @@ def test_k3_encode_matches_plain(cuda, kname, q):
     assert not got[:, kp.cfg.out_dim:].float().any()
 
 
+NARROW_KP = {f"F{F}_Fl{Fl}": KPlanesConfig((16, 32), F, 64, Fl, aabb_scale=2.0,
+                                            hybrid_freqs=3)
+             for F in (4, 6) for Fl in (8, 12)}
+
+
+@pytest.mark.parametrize("kname", NARROW_KP)
+def test_k3_narrow_features_bit_identical(cuda, kname):
+    """Feature widths that are not multiples of 8 (texel groups of 4 or 2,
+    lines starting off a 16-byte boundary): the encode-only entry is bit for
+    bit its plain version, static and 4-D folded."""
+    for kcfg, t in ((NARROW_KP[kname], None),
+                    (NARROW_KP[kname]._replace(hybrid_freqs=0, time_res=5), 0.61)):
+        m = _kp_model(kcfg, 30, cuda, n_layers=3, hidden=128, skip=1)
+        kp = ke.pack_kplanes(m.pos_grid, kcfg, t=t)
+        rng = np.random.RandomState(31)
+        pts = torch.from_numpy(rng.uniform(-2.3, 2.3, (4099, 3)).astype(np.float32)).to(cuda)
+        before = ke.fused_kplanes_encode.launches
+        got = ke.fused_kplanes_encode(kp, pts, 64)
+        torch.cuda.synchronize()
+        assert ke.fused_kplanes_encode.launches == before + 1
+        want = ke.kplanes_encode_plain(kp, pts, 64)
+        assert torch.equal(got, want)
+        assert not got[:, kcfg.out_dim:].float().any()
+
+
+@pytest.mark.parametrize("kname", NARROW_KP)
+def test_k2_kplanes_narrow_features_match_plain(cuda, kname):
+    """K2's k-planes route with contraction at the narrow feature widths."""
+    kcfg = NARROW_KP[kname]
+    m = _kp_model(kcfg, 32, cuda)
+    kp = ke.pack_kplanes(m.pos_grid, kcfg)
+    fr.reset_launches()
+    got, want, off = _k2_kp_pair(m, kp, _rays(700, 63, 33, cuda), True)
+    torch.cuda.synchronize()
+    assert fr.fused_raymarch.route_launches["kplanes"] == 1
+    assert int(off.sum()) >= 0.95 * off.numel()
+    for g, w, tol in zip(got, want, (2e-2, 2e-2, 2e-2, 0.1)):
+        assert torch.isfinite(g).all()
+        assert float((g[off] - w[off]).abs().max()) <= tol
+    assert float((got[1][:, :-1] - want[1][:, :-1]).abs().max()) <= 2e-2
+
+
 def _k2_kp_pair(m, kp, rays, contract, infinite_last_bin=True):
     """K2 with the k-planes encode against its plain version, and the rays
     off the last-bin kink (its band measured with K3 + K1 on the card)."""
@@ -330,10 +433,10 @@ def _k2_kp_pair(m, kp, rays, contract, infinite_last_bin=True):
     pts = o + d * (z[:, -1:] * nr[:, None])
     if contract:
         pts = scene_contract(pts)
-    P = m.cfg.enc_pos_dim
-    k_logit = fm.fused_nerf_apply(packed, ke.fused_kplanes_encode(kp, pts, 128)[:, :P], ed)[:, 3]
+    P, ep = m.cfg.enc_pos_dim, fm._enc_pads(m.cfg)[0]
+    k_logit = fm.fused_nerf_apply(packed, ke.fused_kplanes_encode(kp, pts, ep)[:, :P], ed)[:, 3]
     p_logit = fm.fused_nerf_apply_plain(
-        packed, ke.kplanes_encode_plain(kp, pts, 128)[:, :P], ed)[:, 3]
+        packed, ke.kplanes_encode_plain(kp, pts, ep)[:, :P], ed)[:, 3]
     band = 2.0 * float((k_logit - p_logit).abs().max())
     off = p_logit.abs() >= band if infinite_last_bin else torch.ones_like(p_logit, dtype=bool)
     return got, want, off
@@ -537,10 +640,14 @@ def test_ipe_on_cuda_never_takes_the_plain_version(cuda, monkeypatch):
 
 @pytest.mark.parametrize("mode", pp.MODES)
 def test_k5_matches_plain(cuda, mode):
+    """Every probe shape, and M, N, K off the 16 x 32 tile and the k16 steps
+    (rows not 16-byte aligned: scalar loads), and K over one 128-deep chunk
+    (three round trips)."""
     rng = np.random.default_rng(3)
-    ragged = ("ragged", rng.normal(size=(37, 21)).astype(np.float32),
-              rng.normal(size=(21, 45)).astype(np.float32))
-    for name, a, b in pp.probe_inputs() + [ragged]:
+    ragged = [(f"{m}x{k}x{n}", rng.normal(size=(m, k)).astype(np.float32),
+               rng.normal(size=(k, n)).astype(np.float32))
+              for m, k, n in ((37, 21, 45), (33, 17, 40), (40, 300, 33), (1, 1, 1))]
+    for name, a, b in pp.probe_inputs() + ragged:
         a, b = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
         before = pp.precision_dot.launches
         got = pp.precision_dot(a, b, mode)

@@ -53,6 +53,29 @@ def test_plain_matches_jax_fused_and_nerf_apply_bf16():
     assert np.std(got) > 1e-3
 
 
+@pytest.mark.parametrize("hidden", [384, 512])
+def test_wide_plain_matches_jax_fused_and_nerf_apply_bf16(hidden):
+    """Hidden widths 384 and 512 (the kernels' wide path; 3 layers, skip 1)."""
+    jcfg = jmlp.NeRFConfig(63, 27, n_layers=3, hidden_dim=hidden, skip_pos=1)
+    params = jmlp.init_nerf_params(jax.random.PRNGKey(hidden), jcfg)
+    m = tmlp.NeRFMLP(tmlp.NeRFConfig(*jcfg), device="cpu")
+    m.load_state_dict(tmlp.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    rng = np.random.RandomState(hidden)
+    ep = (rng.normal(size=(200, 63)) * 0.5).astype(np.float32)
+    ed = (rng.normal(size=(200, 27)) * 0.5).astype(np.float32)
+    got = tfm.fused_nerf_apply(m, torch.from_numpy(ep), torch.from_numpy(ed),
+                               device="cpu").numpy()
+    fused = np.asarray(jfm.fused_nerf_apply(params, jcfg, jnp.asarray(ep),
+                                            jnp.asarray(ed), interpret=True))
+    bf16 = np.asarray(jmlp.nerf_apply(params, jcfg, jnp.asarray(ep),
+                                      jnp.asarray(ed),
+                                      compute_dtype=jnp.bfloat16))
+    np.testing.assert_allclose(got, fused, atol=0.05)
+    np.testing.assert_allclose(got, bf16, atol=0.05)
+    assert np.std(got) > 1e-3
+
+
 def test_plain_padding_independence():
     _, m, ep, ed = _setup(seed=1, q=2049)
     packed = tfm.pack_nerf_params(m)
@@ -125,7 +148,7 @@ def test_wrapper_device_rules():
 
 
 def _unstage(cfg, staged):
-    """Invert ``stage_weights``: → the (K, N) arrays of ``_stream_arrays``,
+    """Invert ``stage_weights``: → the (K, N) arrays of ``_stream_layers``,
     padding rows included (W_c1's enc_dir rows to a multiple of 64)."""
     H, kc = cfg.hidden_dim, tfm.KC
     ep, ed = tfm._enc_pads(cfg)
@@ -153,10 +176,10 @@ def test_staged_weights_invert_to_views(name):
     cfg = STAGE_CFGS[name]
     m = tmlp.NeRFMLP(cfg, generator=torch.Generator().manual_seed(5), device="cpu")
     packed = tfm.pack_nerf_params(m)
-    trunk, colour = tfm._stream_arrays(cfg, packed.views)
+    arrays = [w for layer in tfm._stream_layers(cfg, packed.views) for w in layer]
     got = _unstage(cfg, packed.staged)
-    assert len(got) == len(trunk) + len(colour)
-    for g, w in zip(got, trunk + colour):
+    assert len(got) == len(arrays)
+    for g, w in zip(got, arrays):
         k = w.shape[0]
         assert g.dtype == torch.bfloat16 and g.shape[1] == w.shape[1]
         assert g.shape[0] % tfm.KC == 0 and g.shape[0] - k < tfm.KC
@@ -176,12 +199,54 @@ def test_staged_weights_invert_to_views(name):
                                      + n_colour * tfm.KC * (H // 2))
 
 
+@pytest.mark.parametrize("hidden", [384, 512])
+def test_wide_staged_weights_invert_to_layers(hidden):
+    """The wide path's stream: per matmul, per NCW-column chunk of its output,
+    the chunk's 64 x NCW stages of each of its arrays in K order. Taking it
+    apart stage by stage gives back every array of ``_stream_layers``, bit
+    for bit, and the stage count the kernel's producer cycles through."""
+    cfg = tmlp.NeRFConfig(63, 27, n_layers=4, hidden_dim=hidden, skip_pos=2)
+    m = tmlp.NeRFMLP(cfg, generator=torch.Generator().manual_seed(6), device="cpu")
+    packed = tfm.pack_nerf_params(m)
+    staged, kc, nc = packed.staged, tfm.KC, tfm.NCW
+    off = 0
+    layers = tfm._stream_layers(cfg, packed.views)
+    for layer in layers:
+        n_out = layer[0].shape[1]
+        rebuilt = [torch.zeros((-(-w.shape[0] // kc) * kc, n_out), dtype=torch.bfloat16)
+                   for w in layer]
+        for n in range(0, n_out, nc):            # chunk by chunk, in kernel order
+            for r in rebuilt:
+                kp = r.shape[0]
+                stages = tfm._swizzle_rows(staged[off:off + kp * nc].reshape(kp // kc, nc, kc))
+                r[:, n:n + nc] = stages.transpose(1, 2).reshape(kp, nc)
+                off += kp * nc
+        for w, r in zip(layer, rebuilt):
+            assert torch.equal(r[:w.shape[0]], w)
+            assert not r[w.shape[0]:].float().any()
+    assert off == staged.numel()
+    ep, ed = tfm._enc_pads(cfg)
+    trunk = 2 * ep // kc + cfg.n_layers * hidden // kc
+    colour = (hidden + -(-ed // kc) * kc) // kc
+    assert staged.numel() == ((hidden // nc) * trunk + (hidden // 2 // nc) * colour) * kc * nc
+    # stage 0 is W0[0:64, 0:64] as 64 rows of 64 K values, swizzled
+    st = staged[:kc * nc].reshape(nc, 8, 8)
+    n, k = torch.meshgrid(torch.arange(nc), torch.arange(kc), indexing="ij")
+    assert torch.equal(st[n, (k // 8) ^ (n % 8), k % 8], packed.views["w0"][:kc, :nc].T)
+
+
 def test_kernel_shape_check_names_hidden_widths():
+    """The kernels take 128, 256 (accumulator in registers), 384 and 512
+    (the wide path); above 512 the message gives the shared-memory
+    arithmetic."""
     tfm.check_kernel_shape(TCFG)
     tfm.check_kernel_shape(STAGE_CFGS["3x128"])
-    wide = tmlp.NeRFConfig(63, 27, n_layers=8, hidden_dim=384, skip_pos=4)
+    for hidden in (384, 512):
+        tfm.check_kernel_shape(tmlp.NeRFConfig(63, 27, n_layers=8,
+                                               hidden_dim=hidden, skip_pos=4))
+    wide = tmlp.NeRFConfig(63, 27, n_layers=8, hidden_dim=640, skip_pos=4)
     assert tfm.fusable(wide)
-    with pytest.raises(ValueError, match="384"):
+    with pytest.raises(ValueError, match="640.*160 registers.*shared memory.*160 KiB"):
         tfm.check_kernel_shape(wide)
 
 

@@ -31,6 +31,8 @@ import torch
 
 from nerf_sandbox_tpu.core.encoding import positional_encoding as jpe
 from nerf_sandbox_tpu.core.encoding import vanilla_encoders
+from nerf_sandbox_tpu.core.integrator import volume_render_rays as jvolume
+from nerf_sandbox_tpu.ops.fused_mlp import fused_nerf_apply as jfused_mlp
 from nerf_sandbox_tpu.models import kplanes as jk
 from nerf_sandbox_tpu.models import mlp as jmlp
 from nerf_sandbox_tpu.models.forward import nerf_forward_pass as jforward
@@ -38,6 +40,7 @@ from nerf_sandbox_tpu.ops.fused_raymarch import fused_raymarch as jfused
 from nerf_sandbox_tpu_torch.core.encoding import (
     integrated_positional_encoding, positional_encoding, scene_contract)
 from nerf_sandbox_tpu_torch.models import kplanes as tk
+from nerf_sandbox_tpu_torch.models.forward import nerf_forward_pass as tforward
 from nerf_sandbox_tpu_torch.models import mlp as tmlp
 from nerf_sandbox_tpu_torch.ops import fused_mlp as tfm
 from nerf_sandbox_tpu_torch.ops import fused_raymarch as tfr
@@ -311,3 +314,75 @@ def test_kplanes_matches_jax(case):
                                    kp_params=m.pos_grid, kp_cfg=m.pos_grid.cfg,
                                    kp_t=0.9, device="cpu", **kw)
         assert float((other[0] - torch.from_numpy(got[0])).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("hybrid", [0, 3])
+def test_plain_kplanes_four_features_matches_jax_pallas(hybrid):
+    """K2's k-planes route at plane_features = 4 (which the kernels now take)
+    against the Pallas kernel in interpret mode, on the JAX test's own
+    configuration and init (tests/test_fused_raymarch.py:_kp_setup: planes
+    (8, 16) x 4, lines 32 x 8, aabb 2.0, a 4x128 MLP skip 2)."""
+    jkc = jk.KPlanesConfig(plane_res=(8, 16), plane_features=4, line_res=32,
+                           line_features=8, aabb_scale=2.0, hybrid_freqs=hybrid)
+    jcfg = jmlp.NeRFConfig(jkc.out_dim, 27, n_layers=4, hidden_dim=128, skip_pos=2)
+    key = jax.random.PRNGKey(4)
+    params = jmlp.init_nerf_params(key, jcfg)
+    params["pos_grid"] = jk.init_kplanes_params(jax.random.fold_in(key, 1), jkc)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    m = tmlp.NeRFMLP(tmlp.NeRFConfig(*jcfg), grid_cfg=tk.KPlanesConfig(*jkc),
+                     device="cpu")
+    m.load_state_dict(tmlp.params_from_jax(params))
+    o, d, norms, z = _rays(b=37, n=21, seed=11)
+    kp = tke.pack_kplanes(m.pos_grid, m.pos_grid.cfg)
+    assert _last_logit_margin(m, o, d, norms, z, False, kp) > KINK_MARGIN
+    _, dir_b = vanilla_encoders()
+    t = torch.from_numpy
+    got = tfr.fused_raymarch(m, t(o), t(d), t(z), t(norms),
+                             positional_encoding(t(d), dir_b), None, kp_params=kp,
+                             kp_cfg=kp.cfg,
+                             device="cpu")
+    J = jnp.asarray
+    want = jfused(params, jcfg, J(o), J(d), J(z), J(norms), jpe(J(d), J(dir_b)),
+                  None, kp_params=params["pos_grid"], kp_cfg=jkc, interpret=True)
+    _assert_close([x.numpy() for x in got], want, "vs JAX fused_raymarch")
+
+
+def test_4d_forward_pass_with_per_ray_times_matches_jax():
+    """A 4-D k-planes ``nerf_forward_pass(use_kernel=True)`` whose rays carry
+    two different times: the encode runs per sample (JAX runs no kernel for
+    it either), the MLP through K1. Held against JAX's own steps:
+    ``kplanes_encode(t01)`` in bf16, ``fused_nerf_apply(interpret=True)``,
+    ``volume_render_rays``; rgb and acc 2e-2, depth 0.1 (finite last bin)."""
+    params, jcfg, jkc, m = _kp_model(0, 6, 14)
+    o, d, norms, z = _rays(b=37, n=21, seed=14)
+    times = np.where(np.arange(37) % 2 == 0, 0.2, 0.8).astype(np.float32)
+    pos_b, dir_b = vanilla_encoders()
+    t = torch.from_numpy
+    got = tforward(m, t(o), t(d), t(z), pos_bands=pos_b, dir_bands=dir_b,
+                   white_bkgd=True, ray_norms=t(norms), viewdirs_world_unit=t(d),
+                   infinite_last_bin=False, compute_dtype=torch.bfloat16,
+                   use_kernel=True, pos_encoder="kplanes", enc_cfg=m.pos_grid.cfg,
+                   t=t(times), device="cpu")
+    J = jnp.asarray
+    pts = (o[:, None, :] + d[:, None, :] * (z * norms[:, None])[..., None]).reshape(-1, 3)
+    t01 = np.repeat(times, z.shape[1])
+    enc_pos = jk.kplanes_encode(jax.tree_util.tree_map(J, params["pos_grid"]), J(pts),
+                                jkc, compute_dtype=jnp.bfloat16, t01=J(t01))
+    enc_dir = jpe(J(np.repeat(d, z.shape[1], axis=0)), J(dir_b))
+    raw = jfused_mlp(params, jcfg, enc_pos, enc_dir, interpret=True)
+    rgb = jax.nn.sigmoid(raw[:, :3]).reshape(37, -1, 3)
+    sigma = jax.nn.relu(raw[:, 3]).reshape(37, -1)
+    want = jvolume(rgb, sigma, J(z), ray_norm=J(norms), white_bkgd=True,
+                   infinite_last_bin=False)
+    got = [x.detach().numpy() for x in got]
+    for g, w, name, tol in zip(got, want, TOLS, (2e-2, 2e-2, 2e-2, 0.1)):
+        np.testing.assert_allclose(g, np.asarray(w), atol=tol, err_msg=name)
+    # the times reach the encode: one shared time gives another result
+    same = tforward(m, t(o), t(d), t(z), pos_bands=pos_b, dir_bands=dir_b,
+                    white_bkgd=True, ray_norms=t(norms), viewdirs_world_unit=t(d),
+                    infinite_last_bin=False, compute_dtype=torch.bfloat16,
+                    use_kernel=True, pos_encoder="kplanes", enc_cfg=m.pos_grid.cfg,
+                    t=t(np.full(37, 0.2, np.float32)), device="cpu")
+    same = same[0].detach().numpy()
+    assert np.abs(same - got[0]).max() > 1e-3
+    np.testing.assert_allclose(same[::2], got[0][::2], atol=2e-2)

@@ -235,10 +235,17 @@ def test_plain_k3_matches_the_pallas_encode_body(mode):
 
 
 def test_kernel_shape_checks():
+    """Any plane and line feature width (the kernels read groups of 8, 4, 2
+    or 1 features); rows must fit the padded width."""
     _, tcfg = _cfgs(F=4)
     packed = tke.pack_kplanes(_t(_tables(_cfgs(F=4)[0])), tcfg)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        tke.check_kernel_shapes(packed, 64)
+    tke.check_kernel_shapes(packed, 64)
+    j6 = jk.KPlanesConfig(plane_res=(8, 16), plane_features=6, line_res=32,
+                          line_features=12, aabb_scale=2.0)
+    packed6 = tke.pack_kplanes(_t(_tables(j6)), tk.KPlanesConfig(*j6))
+    tke.check_kernel_shapes(packed6, 64)
+    with pytest.raises(ValueError, match="do not fit"):
+        tke.check_kernel_shapes(packed6, 16)
     _, tcfg8 = _cfgs(F=8, hybrid_freqs=6)
     packed8 = tke.pack_kplanes(_t(_tables(_cfgs(F=8, hybrid_freqs=6)[0])), tcfg8)
     tke.check_kernel_shapes(packed8, 64)
