@@ -1,6 +1,6 @@
 """Time two builds of K1, K2 and K3's encode-only entry in turns, on one card.
 
-    python -m nerf_sandbox_tpu_torch.compare_builds --old-csrc DIR [--out FILE]
+    python -m nerf_sandbox_tpu_torch.compare_builds --old-csrc DIR [--hidden 128,256,384,512] [--out FILE]
 
 ``DIR`` holds an earlier ``csrc/`` (``fused_mlp.cu``, ``fused_raymarch.cu``,
 ``kplanes_encode.cu`` and the headers they include) whose C entry points are
@@ -8,9 +8,11 @@ the current ones: the wgmma tile, with the staged weight stream. The script
 builds it with the package's nvcc flags, one compiler each, into
 ``build/compare_old/``, builds the current sources as the package does, and
 times, in the order old, new, new, old (each a median of 10 CUDA-event runs
-after warm-up): K1 at 2^20 rows, K2 on the Blender fine (16384 x 192) and
-coarse (16384 x 64) eval tiles of ``chip_smoke.py`` (the reference weights,
-frame 1's mid-frame tile), and K3's encode-only entry on the contracted
+after warm-up): K1 at 2^20 rows and K2 on the Blender fine (16384 x 192)
+eval tile of ``chip_smoke.py`` (frame 1's mid-frame tile) at each width of
+``--hidden`` (8 layers, skip 4; the reference weights at 256, seeded ones at
+the others), K2 on the coarse (16384 x 64) tile at 256, and K3's
+encode-only entry on the contracted
 points of a 360 tile (16384 rays of frame 1's middle x 192 lindisp samples,
 the full-width planes of ``chip_smoke.kp_configs``). Both builds are called
 through ctypes on the same prepared tensors. It prints each time, old and new outputs' largest
@@ -67,6 +69,8 @@ def _ptr(t):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old-csrc", required=True, type=Path)
+    ap.add_argument("--hidden", default="256",
+                    help="comma-separated hidden widths for K1 and K2 (default 256)")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -100,9 +104,14 @@ def main(argv=None) -> int:
     model_f = NeRFMLP(cfg, device=dev)
     model_f.load_state_dict({k: torch.from_numpy(sd[k]) for k in sd.files})
     model_c = NeRFMLP(cfg, generator=torch.Generator().manual_seed(0), device=dev)
-    packed = fm.pack_nerf_params(model_f)
     ep_pad, ed_pad = fm._enc_pads(cfg)
-    offsets = fm.offsets_arg(packed)
+    widths = [int(h) for h in args.hidden.split(",")]
+    packs = {}
+    for H in widths:
+        m = model_f if H == 256 else NeRFMLP(
+            NeRFConfig(63, 27, 8, H, 4), generator=torch.Generator().manual_seed(H),
+            device=dev)
+        packs[H] = fm.pack_nerf_params(m)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
     # K1 inputs, as chip_smoke's phase 3 at 2^20 rows
@@ -112,19 +121,19 @@ def main(argv=None) -> int:
         dev, torch.bfloat16)
     ed = torch.from_numpy((rng.normal(size=(Q, 27)) * 0.5).astype(np.float32)).to(
         dev, torch.bfloat16)
-    k1_out = {k: torch.empty((Q, 4), dtype=torch.float32, device=dev)
-              for k in ("old", "new")}
+    k1_out = {(k, H): torch.empty((Q, 4), dtype=torch.float32, device=dev)
+              for k in ("old", "new") for H in widths}
     libs = {"old": old, "new": {n: cuda_build.load(n) for n in old}}
     f = {w: libs[w]["fused_mlp"].nerf_fused_mlp for w in libs}
     for fn in f.values():
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
                        + [ctypes.c_void_p] + [ctypes.c_int] * 8
                        + [ctypes.c_void_p] * 2)
-    shape = (Q, 63, 27, cfg.hidden_dim, ep_pad, ed_pad, cfg.n_layers, cfg.skip_pos)
-
-    def k1(which):
-        err = f[which](_ptr(ep), _ptr(ed), _ptr(packed.flat), offsets,
-                       _ptr(packed.staged), *shape, _ptr(k1_out[which]), stream)
+    def k1(which, H):
+        pk = packs[H]
+        err = f[which](_ptr(ep), _ptr(ed), _ptr(pk.flat), fm.offsets_arg(pk),
+                       _ptr(pk.staged), Q, 63, 27, H, ep_pad, ed_pad, 8, 4,
+                       _ptr(k1_out[which, H]), stream)
         if err:
             raise RuntimeError(f"{which} K1 launch: CUDA error {err}")
 
@@ -156,22 +165,23 @@ def main(argv=None) -> int:
                           ctypes.c_void_p] + tail + ke.KP_C_ARGTYPES
                        + [ctypes.c_void_p] * 3)
     tiles = {}
-    for name, z in (("fine", zf), ("coarse", zc)):
+    for name, z, H in [("fine", zf, H) for H in widths] + [("coarse", zc, 256)]:
         B, N = z.shape
         outs = {k: (torch.empty((B, 5), dtype=torch.float32, device=dev),
                     torch.empty((B, N), dtype=torch.float32, device=dev))
                 for k in ("old", "new")}
-        tiles[name] = (z, outs)
+        tiles[name, H] = (z, outs)
 
-    def k2(which, name):
-        z, outs = tiles[name]
+    def k2(which, name, H):
+        z, outs = tiles[name, H]
         B, N = z.shape
-        rest = [B, N, 27, cfg.hidden_dim, ep_pad, ed_pad, cfg.n_layers, cfg.skip_pos,
+        pk = packs[H]
+        rest = [B, N, 27, H, ep_pad, ed_pad, 8, 4,
                 0, 1, 0, 0.0, 0, None, None, None, None, 0, 0, 0, 0, 0, 0.0, None, 0,
                 _ptr(outs[which][0]), _ptr(outs[which][1]), stream]
         rays = [_ptr(ro), _ptr(rd), _ptr(rn), _ptr(enc_dir), _ptr(z)]
-        weights = [c_bands, bands.size, 1, _ptr(packed.flat), offsets]
-        err = g[which](*rays, 1, *weights, _ptr(packed.staged), *rest)
+        weights = [c_bands, bands.size, 1, _ptr(pk.flat), fm.offsets_arg(pk)]
+        err = g[which](*rays, 1, *weights, _ptr(pk.staged), *rest)
         if err:
             raise RuntimeError(f"{which} K2 launch: CUDA error {err}")
 
@@ -202,10 +212,13 @@ def main(argv=None) -> int:
             raise RuntimeError(f"{which} K3 launch: CUDA error {err}")
 
     result = {"card": card}
-    for label, fn in (("K1 2^20 rows", k1),
-                      ("K2 fine 16384x192", lambda w: k2(w, "fine")),
-                      ("K2 coarse 16384x64", lambda w: k2(w, "coarse")),
-                      (f"K3 encode-only {pts.shape[0]} rows", k3)):
+    runs = [(f"K1 2^20 rows H={H}", lambda w, H=H: k1(w, H)) for H in widths]
+    runs += [(f"K2 fine 16384x192 H={H}", lambda w, H=H: k2(w, "fine", H))
+             for H in widths]
+    if 256 in widths:
+        runs.append(("K2 coarse 16384x64 H=256", lambda w: k2(w, "coarse", 256)))
+    runs.append((f"K3 encode-only {pts.shape[0]} rows", k3))
+    for label, fn in runs:
         times = []
         for which in ("old", "new", "new", "old"):
             times.append((which, cs.cuda_ms(torch, lambda: fn(which))))
@@ -217,11 +230,11 @@ def main(argv=None) -> int:
               f"ms, new {np.mean(new_ms):.3f} ms: {np.mean(old_ms) / np.mean(new_ms):.2f}x"
               f" | {card}", flush=True)
         result[label] = {"order": [w for w, _ in times], "ms": [t for _, t in times]}
-    d_k1 = float((k1_out["old"] - k1_out["new"]).abs().max())
-    d_k2 = {n: [float((tiles[n][1]["old"][i] - tiles[n][1]["new"][i]).abs().max())
-                for i in (0, 1)] for n in tiles}
+    d_k1 = {H: float((k1_out["old", H] - k1_out["new", H]).abs().max()) for H in widths}
+    d_k2 = {f"{n} H={H}": [float((o["old"][i] - o["new"][i]).abs().max()) for i in (0, 1)]
+            for (n, H), (_, o) in tiles.items()}
     n_k3 = int((k3_out["old"] != k3_out["new"]).sum())
-    print(f"[compare] old vs new outputs: K1 max|diff| {d_k1:.3g}; K2 (raw, w) "
+    print(f"[compare] old vs new outputs: K1 max|diff| by width {d_k1}; K2 (raw, w) "
           f"max|diff| {d_k2}; K3 {n_k3} of {k3_out['new'].numel()} values differ",
           flush=True)
     result["max_diff"] = {"K1": d_k1, "K2": d_k2, "K3_values_differ": n_k3}

@@ -77,8 +77,8 @@ def ndc_warp(rays_o: torch.Tensor, rays_d_raw: torch.Tensor, *, image_h: int,
 
 
 def get_camera_rays(
-    K: torch.Tensor,                # (3, 3)
-    c2w: torch.Tensor,              # (3, 4) or (4, 4)
+    K: torch.Tensor,                # (3, 3), or (..., 3, 3) one per pixel
+    c2w: torch.Tensor,              # (3, 4) or (4, 4), or (..., 3, 4) one per pixel
     pixels_xy: torch.Tensor,        # (..., 2) [x, y] pixel coordinates
     *,
     image_h: int,
@@ -88,14 +88,16 @@ def get_camera_rays(
     as_ndc: bool = False,
     near_plane: float = 1.0,
 ) -> RayBundle:
-    """World + marching rays for the given pixels (ray_utils.py:11-136)."""
+    """World + marching rays for the given pixels (ray_utils.py:11-136).
+    A camera per pixel (``K`` (..., 3, 3), ``c2w`` (..., 3, 4)) is the JAX
+    sampler's vmap over per-ray cameras."""
     K = K.to(torch.float32)
     c2w = c2w.to(torch.float32)
     px = pixels_xy.to(torch.float32)
     if pixel_center:
         px = px + 0.5
-    x_cam = (px[..., 0] - K[0, 2]) / K[0, 0]
-    y_cam = (px[..., 1] - K[1, 2]) / K[1, 1]
+    x_cam = (px[..., 0] - K[..., 0, 2]) / K[..., 0, 0]
+    y_cam = (px[..., 1] - K[..., 1, 2]) / K[..., 1, 1]
 
     conv = (convention or "opengl").lower()
     if conv not in _CONVENTIONS:
@@ -104,11 +106,14 @@ def get_camera_rays(
     dirs_cam = torch.stack(
         [x_cam, sy_sign * y_cam, sz_sign * torch.ones_like(x_cam)], dim=-1)
 
-    R = c2w[:3, :3]
-    t = c2w[:3, 3]
+    R = c2w[..., :3, :3]
+    t = c2w[..., :3, 3]
     # The JAX package pins this contraction to HIGHEST; here it is a true
     # fp32 product (TF32 is off, device.py).
-    d_world_raw = dirs_cam @ R.T
+    if R.dim() == 2:
+        d_world_raw = dirs_cam @ R.T
+    else:
+        d_world_raw = (dirs_cam[..., None, :] @ R.transpose(-1, -2))[..., 0, :]
 
     d_world_norm = torch.linalg.vector_norm(d_world_raw, dim=-1, keepdim=True)
     d_world_unit = d_world_raw / (d_world_norm + 1e-9)
@@ -120,7 +125,7 @@ def get_camera_rays(
 
     o_ndc, d_ndc_raw = ndc_warp(
         o_world, d_world_raw, image_h=image_h, image_w=image_w,
-        focal=K[0, 0], near_plane=float(near_plane))
+        focal=K[..., 0, 0], near_plane=float(near_plane))
     d_march_norm = torch.linalg.vector_norm(d_ndc_raw, dim=-1, keepdim=True)
     # torch.nn.functional.normalize semantics, eps=1e-12 (ray_utils.py:126)
     d_march_unit = d_ndc_raw / torch.clamp(d_march_norm, min=1e-12)

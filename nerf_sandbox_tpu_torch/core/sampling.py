@@ -143,12 +143,40 @@ def merge_z_samples(z_coarse: torch.Tensor, z_fine: torch.Tensor) -> torch.Tenso
 
 def resample_midpoints(z: torch.Tensor, w: torch.Tensor, n: int, *,
                        generator: torch.Generator | None = None,
-                       deterministic: bool = False) -> torch.Tensor:
+                       deterministic: bool = False,
+                       u: torch.Tensor | None = None) -> torch.Tensor:
     """Fine z's from a coarse pass's per-sample weights (trainer.py:926-934):
     bins are the z midpoints, bin weights the averaged interval weights,
-    detached, +1e-5 floor. The proposal-mode ``power``/``explore_floor``
-    knobs of the JAX function are not ported (ROADMAP P7 item 4)."""
+    detached, +1e-5 floor. ``u`` (B, n) overrides ``sample_pdf``'s draws.
+    The proposal-mode ``power``/``explore_floor`` knobs of the JAX function
+    are not ported (ROADMAP P7 item 4)."""
     mids = 0.5 * (z[..., 1:] + z[..., :-1])
     wb = (0.5 * (w[..., 1:] + w[..., :-1])).detach() + 1e-5
     return sample_pdf(mids, wb, n, generator=generator,
-                      deterministic=deterministic)
+                      deterministic=deterministic, u=u)
+
+
+def distortion_loss(z: torch.Tensor, w: torch.Tensor, near, far,
+                    lindisp: bool = False) -> torch.Tensor:
+    """mip-NeRF 360's distortion loss (Barron et al. 2022, §4), JAX
+    ``core/sampling.py:distortion_loss``:
+    ``L = Σ_ij w_i w_j |u_i − u_j| + (1/3) Σ_i w_i² Δ_i`` per ray, averaged,
+    in the sampler's normalised s-space (linear in z, or in disparity under
+    ``lindisp``), by prefix sums over the sorted samples:
+    ``Σ_ij w_i w_j |u_i − u_j| = 2 Σ_i w_i (u_i W_{<i} − S_{<i})``. ``z``
+    (B, N) sorted samples, ``w`` (B, N) their weights (the gradient flows
+    into ``w``)."""
+    if lindisp:
+        g, gn, gf = 1.0 / torch.clamp(z, min=1e-9), 1.0 / near, 1.0 / far
+    else:
+        g, gn, gf = z, near, far
+    s = (g - gn) / (gf - gn)                                   # (B, N) in [0, 1]
+    mids = 0.5 * (s[..., 1:] + s[..., :-1])
+    e = torch.cat([s[..., :1], mids, s[..., -1:]], dim=-1)    # (B, N+1)
+    u = 0.5 * (e[..., 1:] + e[..., :-1])                       # interval mids
+    delta = e[..., 1:] - e[..., :-1]                           # interval sizes
+    w_cum = torch.cumsum(w, dim=-1) - w                        # W_{<i}
+    wu_cum = torch.cumsum(w * u, dim=-1) - w * u               # S_{<i}
+    inter = 2.0 * torch.sum(w * (u * w_cum - wu_cum), dim=-1)
+    intra = torch.sum(w * w * delta, dim=-1) / 3.0
+    return torch.mean(inter + intra)

@@ -7,6 +7,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace nerf {
 using bf16 = __nv_bfloat16;
 }  // namespace nerf

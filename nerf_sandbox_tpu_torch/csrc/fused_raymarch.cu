@@ -8,9 +8,10 @@
 // frequency branch, its contraction branch (:406-413), its k-planes branch
 // (_kp_encode_body, kplanes_encode.cuh) and its IPE branch (:432-486, with
 // the wrapper's interval streams :631-648). The encoder, the contraction and
-// the hidden width (128, 256, 384 or 512) are template parameters, so each
-// of the twenty-four instantiations carries only its own code. What it computes, not
-// its TPU layout:
+// the hidden width (128, 256, 384 or 512, or 0 for the large route of
+// mlp_tile.cuh, which takes any multiple of 128 above 512 at run time) are
+// template parameters, so each of the thirty instantiations carries only its
+// own code. What it computes, not its TPU layout:
 //  * the TPU carries per-ray state across SEQUENTIAL grid steps; CUDA blocks
 //    run in no order, so a block owns a group of RAYS rays at a time and
 //    loops over their samples itself, SPC samples of each ray per pass of
@@ -186,18 +187,18 @@ __device__ __forceinline__ void frustum_gaussian(const float* g, float mu,
 
 template <int ENC, bool CONTRACT, int H>
 __global__ void __launch_bounds__(N_THREADS, 1)
-fused_raymarch_kernel(const MarchArgs a, const MlpArgs P,
+fused_raymarch_kernel(const MarchArgs a, const MlpArgsOf<H> P,
                       const __grid_constant__ KpArgs k) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  constexpr bool W = H > 256;
-  mlp_setup<W>(smem, P);
+  constexpr int R = route_of(H);
+  mlp_setup<R>(smem, P);
   const int wg = warpgroup(), t = threadIdx.x % WG_THREADS;
   if (wg == N_CONSUMERS) {
-    mlp_produce<W>(smem, P);
+    mlp_produce<R>(smem, P);
     return;
   }
   consumer_regs();
-  const MlpSmem S = mlp_carve<W>(smem, P);
+  const MlpSmem S = mlp_carve<R>(smem, P);
   float* pts = reinterpret_cast<float*>(S.extra) + wg * WG_MARCH_FLOATS;  // (64, 3)
   float* var = pts + WG_ROWS * 3;                                          // (64, 3), K4
   float* zdt = var + WG_ROWS * 3;                                          // (2, 2, 64)
@@ -211,7 +212,7 @@ fused_raymarch_kernel(const MarchArgs a, const MlpArgs P,
   const int half = 3 * a.n_bands;
   const int n_enc = n_id + 2 * half;
   const int n_groups = (a.B + RAYS - 1) / RAYS;
-  Pipe pipe(S, P, W);
+  Pipe pipe(S, P, R != ROUTE_REGS);
 
   for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
     const int ray0 = grp * RAYS + wg * WG_RAYS;
@@ -359,7 +360,7 @@ fused_raymarch_kernel(const MarchArgs a, const MlpArgs P,
 }
 
 template <int ENC, bool CONTRACT, int H>
-static int launch_march(const MarchArgs& a, MlpArgs P, const KpArgs& k,
+static int launch_march(const MarchArgs& a, MlpArgsOf<H> P, const KpArgs& k,
                         cudaStream_t stream) {
   const size_t smem = plan_stages(P, MARCH_EXTRA);
   if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -367,17 +368,22 @@ static int launch_march(const MarchArgs& a, MlpArgs P, const KpArgs& k,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int groups = (a.B + RAYS - 1) / RAYS;
   if (groups == 0) return 0;
-  const int grid = groups < sm_count() ? groups : sm_count();
+  const int grid = grid_blocks(groups, P);
   fused_raymarch_kernel<ENC, CONTRACT, H><<<grid, N_THREADS, smem, stream>>>(a, P, k);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launches of one encoder and contraction at hidden width 128 / 256
-// (WIDE false) or 384 / 512 (WIDE true): a group of two instantiations.
-template <int ENC, bool CONTRACT, bool WIDE>
+// The launches of one encoder and contraction on one MLP route (mlp_tile.cuh:
+// MlpRoute): hidden width 128 / 256 (ROUTE_REGS) or 384 / 512 (ROUTE_WIDE), a
+// group of two instantiations, or the large route's one (P is then the
+// LargeMlpArgs the entry made).
+template <int ENC, bool CONTRACT, int ROUTE>
 int launch_group(const MarchArgs& a, const MlpArgs& P, const KpArgs& k,
                  cudaStream_t stream) {
-  if constexpr (WIDE)
+  if constexpr (ROUTE == ROUTE_LARGE)
+    return launch_march<ENC, CONTRACT, 0>(a, static_cast<const LargeMlpArgs&>(P), k,
+                                          stream);
+  else if constexpr (ROUTE == ROUTE_WIDE)
     return P.H == 512 ? launch_march<ENC, CONTRACT, 512>(a, P, k, stream)
                       : launch_march<ENC, CONTRACT, 384>(a, P, k, stream);
   else
@@ -386,56 +392,77 @@ int launch_group(const MarchArgs& a, const MlpArgs& P, const KpArgs& k,
 }
 
 // ops/cuda_build.py compiles this file once per group, all at once, with
-// -DNERF_PART=p (p = 4 * encoder + 2 * contraction + wide), and links the
-// twelve objects into one library: part p instantiates group p only, part 0
+// -DNERF_PART=p (p = 3 * (2 * encoder + contraction) + route), and links the
+// eighteen objects into one library: part p instantiates group p only, part 0
 // also holds the C entry. Built without NERF_PART, one object holds all.
 #ifdef NERF_PART
-#define GROUP(E, C, W) launch_group<E, C, W>(const MarchArgs&, const MlpArgs&, \
+#define GROUP(E, C, R) launch_group<E, C, R>(const MarchArgs&, const MlpArgs&, \
                                              const KpArgs&, cudaStream_t)
-extern template int GROUP(ENC_FREQ, false, false);
-extern template int GROUP(ENC_FREQ, false, true);
-extern template int GROUP(ENC_FREQ, true, false);
-extern template int GROUP(ENC_FREQ, true, true);
-extern template int GROUP(ENC_KPLANES, false, false);
-extern template int GROUP(ENC_KPLANES, false, true);
-extern template int GROUP(ENC_KPLANES, true, false);
-extern template int GROUP(ENC_KPLANES, true, true);
-extern template int GROUP(ENC_IPE, false, false);
-extern template int GROUP(ENC_IPE, false, true);
-extern template int GROUP(ENC_IPE, true, false);
-extern template int GROUP(ENC_IPE, true, true);
+extern template int GROUP(ENC_FREQ, false, ROUTE_REGS);
+extern template int GROUP(ENC_FREQ, false, ROUTE_WIDE);
+extern template int GROUP(ENC_FREQ, false, ROUTE_LARGE);
+extern template int GROUP(ENC_FREQ, true, ROUTE_REGS);
+extern template int GROUP(ENC_FREQ, true, ROUTE_WIDE);
+extern template int GROUP(ENC_FREQ, true, ROUTE_LARGE);
+extern template int GROUP(ENC_KPLANES, false, ROUTE_REGS);
+extern template int GROUP(ENC_KPLANES, false, ROUTE_WIDE);
+extern template int GROUP(ENC_KPLANES, false, ROUTE_LARGE);
+extern template int GROUP(ENC_KPLANES, true, ROUTE_REGS);
+extern template int GROUP(ENC_KPLANES, true, ROUTE_WIDE);
+extern template int GROUP(ENC_KPLANES, true, ROUTE_LARGE);
+extern template int GROUP(ENC_IPE, false, ROUTE_REGS);
+extern template int GROUP(ENC_IPE, false, ROUTE_WIDE);
+extern template int GROUP(ENC_IPE, false, ROUTE_LARGE);
+extern template int GROUP(ENC_IPE, true, ROUTE_REGS);
+extern template int GROUP(ENC_IPE, true, ROUTE_WIDE);
+extern template int GROUP(ENC_IPE, true, ROUTE_LARGE);
 #if NERF_PART == 0
-template int GROUP(ENC_FREQ, false, false);
+template int GROUP(ENC_FREQ, false, ROUTE_REGS);
 #elif NERF_PART == 1
-template int GROUP(ENC_FREQ, false, true);
+template int GROUP(ENC_FREQ, false, ROUTE_WIDE);
 #elif NERF_PART == 2
-template int GROUP(ENC_FREQ, true, false);
+template int GROUP(ENC_FREQ, false, ROUTE_LARGE);
 #elif NERF_PART == 3
-template int GROUP(ENC_FREQ, true, true);
+template int GROUP(ENC_FREQ, true, ROUTE_REGS);
 #elif NERF_PART == 4
-template int GROUP(ENC_KPLANES, false, false);
+template int GROUP(ENC_FREQ, true, ROUTE_WIDE);
 #elif NERF_PART == 5
-template int GROUP(ENC_KPLANES, false, true);
+template int GROUP(ENC_FREQ, true, ROUTE_LARGE);
 #elif NERF_PART == 6
-template int GROUP(ENC_KPLANES, true, false);
+template int GROUP(ENC_KPLANES, false, ROUTE_REGS);
 #elif NERF_PART == 7
-template int GROUP(ENC_KPLANES, true, true);
+template int GROUP(ENC_KPLANES, false, ROUTE_WIDE);
 #elif NERF_PART == 8
-template int GROUP(ENC_IPE, false, false);
+template int GROUP(ENC_KPLANES, false, ROUTE_LARGE);
 #elif NERF_PART == 9
-template int GROUP(ENC_IPE, false, true);
+template int GROUP(ENC_KPLANES, true, ROUTE_REGS);
 #elif NERF_PART == 10
-template int GROUP(ENC_IPE, true, false);
+template int GROUP(ENC_KPLANES, true, ROUTE_WIDE);
 #elif NERF_PART == 11
-template int GROUP(ENC_IPE, true, true);
+template int GROUP(ENC_KPLANES, true, ROUTE_LARGE);
+#elif NERF_PART == 12
+template int GROUP(ENC_IPE, false, ROUTE_REGS);
+#elif NERF_PART == 13
+template int GROUP(ENC_IPE, false, ROUTE_WIDE);
+#elif NERF_PART == 14
+template int GROUP(ENC_IPE, false, ROUTE_LARGE);
+#elif NERF_PART == 15
+template int GROUP(ENC_IPE, true, ROUTE_REGS);
+#elif NERF_PART == 16
+template int GROUP(ENC_IPE, true, ROUTE_WIDE);
+#elif NERF_PART == 17
+template int GROUP(ENC_IPE, true, ROUTE_LARGE);
 #endif
 #endif
 
 template <int ENC, bool CONTRACT>
 static int launch_c(const MarchArgs& a, const MlpArgs& P, const KpArgs& k,
                     cudaStream_t stream) {
-  return is_wide(P.H) ? launch_group<ENC, CONTRACT, true>(a, P, k, stream)
-                      : launch_group<ENC, CONTRACT, false>(a, P, k, stream);
+  switch (mlp_route(P.H)) {
+    case ROUTE_LARGE: return launch_group<ENC, CONTRACT, ROUTE_LARGE>(a, P, k, stream);
+    case ROUTE_WIDE: return launch_group<ENC, CONTRACT, ROUTE_WIDE>(a, P, k, stream);
+    default: return launch_group<ENC, CONTRACT, ROUTE_REGS>(a, P, k, stream);
+  }
 }
 
 template <int ENC>
@@ -450,21 +477,31 @@ static int launch_enc(const MarchArgs& a, const MlpArgs& P, const KpArgs& k,
 // ipe_radii (B,) its integrated form (K4; N >= 2). Otherwise the k-planes
 // encoder of the packed tables (kplanes_encode.cuh: make_kp_args), its
 // hybrid channels from kp_bands; bands are unused. staged: the weight stream
-// (ops/fused_mlp.py:stage_weights).
-extern "C" int nerf_fused_raymarch(
-    const void* rays_o, const void* rays_d, const void* ray_norms,
-    const void* enc_dir, const void* z, int infinite_last_bin, const float* bands,
-    int n_bands, int include_input, const void* wpack,
-    const long long* offsets, const void* staged, int B, int N, int D, int H,
-    int EP, int ED, int n_layers, int skip_pos, int softplus, int white_bkgd,
-    int use_ert, float log_eps, int contract, const void* ipe_radii,
-    const void* kp_pack, const long long* kp_offsets, const int* kp_res,
-    int kp_scales, int kp_F, int kp_L, int kp_Fl, int kp_tfold, float kp_box,
-    const float* kp_bands, int kp_n_bands, void* out_ray, void* out_w,
-    void* stream) {
+// (ops/fused_mlp.py:stage_weights). scratch: the large route's (hidden widths
+// above 512), 2 x 2 x 64 x H bf16 for each of at most scratch_blocks blocks.
+#define MARCH_PARAMS                                                              \
+  const void *rays_o, const void *rays_d, const void *ray_norms,                \
+      const void *enc_dir, const void *z, int infinite_last_bin,                \
+      const float *bands, int n_bands, int include_input, const void *wpack,    \
+      const long long *offsets, const void *staged, int B, int N, int D, int H, \
+      int EP, int ED, int n_layers, int skip_pos, int softplus, int white_bkgd, \
+      int use_ert, float log_eps, int contract, const void *ipe_radii,          \
+      const void *kp_pack, const long long *kp_offsets, const int *kp_res,      \
+      int kp_scales, int kp_F, int kp_L, int kp_Fl, int kp_tfold, float kp_box, \
+      const float *kp_bands, int kp_n_bands
+#define MARCH_ARGS                                                              \
+  rays_o, rays_d, ray_norms, enc_dir, z, infinite_last_bin, bands, n_bands,     \
+      include_input, wpack, offsets, staged, B, N, D, H, EP, ED, n_layers,      \
+      skip_pos, softplus, white_bkgd, use_ert, log_eps, contract, ipe_radii,    \
+      kp_pack, kp_offsets, kp_res, kp_scales, kp_F, kp_L, kp_Fl, kp_tfold,      \
+      kp_box, kp_bands, kp_n_bands
+
+static int raymarch_entry(MARCH_PARAMS, void* scratch, int scratch_blocks,
+                          void* out_ray, void* out_w, void* stream) {
   const bool kp = kp_pack != nullptr, ipe = ipe_radii != nullptr;
+  const bool large = scratch != nullptr && scratch_blocks > 0;
   KpArgs k{};
-  if (!mlp_shape_ok(H, EP, ED, n_layers, skip_pos) || D > ED || B < 0 || N < 1 ||
+  if (!mlp_shape_ok(H, EP, ED, n_layers, skip_pos, large) || D > ED || B < 0 || N < 1 ||
       (ipe && (kp || N < 2)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (kp) {
@@ -493,11 +530,25 @@ extern "C" int nerf_fused_raymarch(
   a.log_eps = log_eps;
   a.out_ray = static_cast<float*>(out_ray);
   a.out_w = static_cast<float*>(out_w);
-  const MlpArgs P = make_mlp_args(wpack, offsets, staged, H, EP, ED, n_layers,
-                                  skip_pos);
+  const LargeMlpArgs P = make_large_args(
+      make_mlp_args(wpack, offsets, staged, H, EP, ED, n_layers, skip_pos), scratch,
+      scratch_blocks);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kp) return launch_enc<ENC_KPLANES>(a, P, k, contract, st);
   if (ipe) return launch_enc<ENC_IPE>(a, P, k, contract, st);
   return launch_enc<ENC_FREQ>(a, P, k, contract, st);
+}
+
+// Hidden widths 128, 256, 384 and 512.
+extern "C" int nerf_fused_raymarch(MARCH_PARAMS, void* out_ray, void* out_w,
+                                   void* stream) {
+  return raymarch_entry(MARCH_ARGS, nullptr, 0, out_ray, out_w, stream);
+}
+
+// Every hidden width, with the large route's scratch.
+extern "C" int nerf_fused_raymarch_large(MARCH_PARAMS, void* scratch,
+                                         int scratch_blocks, void* out_ray,
+                                         void* out_w, void* stream) {
+  return raymarch_entry(MARCH_ARGS, scratch, scratch_blocks, out_ray, out_w, stream);
 }
 #endif

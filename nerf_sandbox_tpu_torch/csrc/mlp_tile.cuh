@@ -69,6 +69,23 @@
 // spilled a few registers and K1's serialized its wgmmas; 32 leaves room.
 // The H = 128 / 256 path does not share this code: the wide path is selected
 // at compile time (H > 256), one instantiation per width.
+//
+// Hidden widths above 512 (the large route; any multiple of 128, H a run-time
+// value, one instantiation for all): neither the 64 x H activations of both
+// warpgroups (2 x 128 KiB at H = 1024) nor a layer's held output (H / 4
+// registers a thread) fits, so each consumer warpgroup keeps its activations
+// in a ping-pong pair of 64 x H bf16 buffers in global memory (LargeMlpArgs::
+// scratch, allocated by the caller per persistent block; they stay mostly in
+// L2), in the swizzled layout of act, where a 64-column slice is 8 KiB
+// contiguous. Each layer runs in the wide path's 32-column output chunks on
+// the same weight stream; a chunk copies its A operand from the layer's input
+// buffer, one 64 x 64 slice at a time, into one of two shared slots (the
+// next slice's loads are in flight while the current slice's wgmmas run), then
+// fence_async_smem and the warpgroup's barrier before the wgmmas read it.
+// The chunk's epilogue goes to the other buffer; sigma and the colour head
+// are reduced from the epilogue's registers as the wide path does. Biases and
+// head vectors are read from global memory, so shared memory does not grow
+// with H. No speed aim: every chunk reads the whole 64 x H input from L2.
 #pragma once
 
 #include "common.cuh"
@@ -95,6 +112,16 @@ constexpr int BAR_CONSUMERS = 3;                     // ids 1, 2: one per warpgr
 constexpr int NCW = 32;
 constexpr uint32_t WIDE_STAGE_BYTES = uint32_t(KC) * NCW * 2;
 
+// Where a layer's activations live: registers (H = 128, 256), shared memory
+// (the wide path, 384, 512) or global scratch (the large route, above 512).
+enum MlpRoute { ROUTE_REGS = 0, ROUTE_WIDE = 1, ROUTE_LARGE = 2 };
+
+// The route of a kernel instantiated for hidden width H; H = 0 instantiates
+// the large route, whose width is a run-time value.
+__host__ __device__ constexpr int route_of(int H) {
+  return H == 0 ? ROUTE_LARGE : H > 256 ? ROUTE_WIDE : ROUTE_REGS;
+}
+
 // Bytes of one weight stage: 64 K rows of the whole width H, or of NCW
 // columns on the wide path.
 __host__ __device__ inline uint32_t stage_bytes(int H, bool wide) {
@@ -114,6 +141,18 @@ struct MlpArgs {
   int H, EP, ED, EDP;   // EDP: ED rounded up to KC
   int n_layers, skip_pos, NS;
 };
+
+// The large route's arguments: the MLP's, and its activation scratch, 2 x 64
+// x H bf16 for each consumer warpgroup of at most scratch_blocks blocks. A
+// type of its own, so that the other routes' kernels keep their parameters.
+struct LargeMlpArgs : MlpArgs {
+  bf16* scratch;
+  int scratch_blocks;
+};
+
+// The arguments of a kernel instantiated for hidden width H (0: large route).
+template <int H>
+using MlpArgsOf = std::conditional_t<H == 0, LargeMlpArgs, MlpArgs>;
 
 // Element offsets of the small vectors copied into shared memory.
 struct PrmOffsets {
@@ -143,17 +182,20 @@ struct MlpLayout {
   size_t ring, enc[N_CONSUMERS], ed[N_CONSUMERS], out[N_CONSUMERS], act[N_CONSUMERS];
   size_t prm, bars, extra, total;
   __host__ __device__ MlpLayout(int H, int EP, int EDP, int n_layers, int NS,
-                                size_t extra_bytes, bool wide) {
+                                size_t extra_bytes, int route) {
+    const bool wide = route != ROUTE_REGS;
     size_t o = 0;
     ring = o;   o += NS * size_t(stage_bytes(H, wide));
     for (int w = 0; w < N_CONSUMERS; ++w) { enc[w] = o; o += (EP / KC) * A_CHUNK_BYTES; }
     for (int w = 0; w < N_CONSUMERS; ++w) { ed[w] = o; o += (EDP / KC) * A_CHUNK_BYTES; }
     for (int w = 0; w < N_CONSUMERS; ++w) { out[w] = o; o += WG_ROWS * 4 * sizeof(float); }
-    for (int w = 0; w < N_CONSUMERS; ++w) {   // wide path: 64 x H activations
-      act[w] = o;
-      if (wide) o += (H / KC) * A_CHUNK_BYTES;
+    for (int w = 0; w < N_CONSUMERS; ++w) {   // wide: 64 x H activations
+      act[w] = o;                             // large: two 64 x 64 A slots
+      if (route == ROUTE_WIDE) o += (H / KC) * A_CHUNK_BYTES;
+      if (route == ROUTE_LARGE) o += 2 * A_CHUNK_BYTES;
     }
-    prm = o;    o += ((prm_offsets(H, n_layers).total * 2 + 15) & ~size_t(15));
+    prm = o;                                  // the large route reads global
+    if (route != ROUTE_LARGE) o += ((prm_offsets(H, n_layers).total * 2 + 15) & ~size_t(15));
     bars = o;   o += (2 * MAX_STAGES + 2) * 8;
     extra = o;  o += extra_bytes;
     total = o + 1024;                       // room to align the base
@@ -165,7 +207,7 @@ struct MlpSmem {
   bf16* enc[N_CONSUMERS];
   bf16* ed[N_CONSUMERS];
   float* out[N_CONSUMERS];                  // per row: r, g, b logits, sigma logit
-  bf16* act[N_CONSUMERS];                   // wide path: the hidden activations
+  bf16* act[N_CONSUMERS];                   // wide: the activations; large: A slots
   const bf16* prm;
   int* done;                                // set once the consumers are finished
   unsigned char* extra;
@@ -313,10 +355,10 @@ __device__ __forceinline__ int launder(int x) {
 
 // The block's shared memory, carved from the layout of P (each role does
 // this itself after the split).
-template <bool WIDE>
+template <int ROUTE>
 __device__ inline MlpSmem mlp_carve(unsigned char* raw, const MlpArgs& P) {
   const MlpLayout L(launder(P.H), launder(P.EP), launder(P.EDP),
-                    launder(P.n_layers), launder(P.NS), 0, WIDE);
+                    launder(P.n_layers), launder(P.NS), 0, ROUTE);
   const uint32_t a = launder(static_cast<int>(smem_addr(raw)));
   unsigned char* base = raw + ((1024 - (a & 1023)) & 1023);
   MlpSmem S;
@@ -336,10 +378,23 @@ __device__ inline MlpSmem mlp_carve(unsigned char* raw, const MlpArgs& P) {
 }
 
 // Called by all N_THREADS threads first: copies the biases and the sigma /
-// rgb head vectors to shared memory, initialises the barriers.
-template <bool WIDE>
+// rgb head vectors to shared memory (not on the large route, which reads
+// them from global memory), initialises the barriers.
+template <int ROUTE>
 __device__ inline void mlp_setup(unsigned char* raw, const MlpArgs& P) {
-  const MlpSmem S = mlp_carve<WIDE>(raw, P);
+  const MlpSmem S = mlp_carve<ROUTE>(raw, P);
+  if constexpr (ROUTE == ROUTE_LARGE) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < MAX_STAGES; ++s) {
+        mbar_init(S.bars + 8 * s, 1);                                // full
+        mbar_init(S.bars + 8 * (MAX_STAGES + s), N_CONSUMER_THREADS / 32);  // empty
+      }
+      *S.done = 0;
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    return;
+  }
   bf16* prm = const_cast<bf16*>(S.prm);
   const int H = P.H, tid = threadIdx.x;
   const PrmOffsets o = prm_offsets(H, P.n_layers);
@@ -384,11 +439,12 @@ __host__ __device__ inline int wide_stream_chunks(int H, int EP, int EDP, int n_
 // The producer warpgroup: one thread refills each stage as soon as all
 // consumer warps have released it, cycling through the stream, until the
 // consumers are done; the other threads leave.
-template <bool WIDE>
+template <int ROUTE>
 __device__ inline void mlp_produce(unsigned char* raw, const MlpArgs& P) {
+  constexpr bool WIDE = ROUTE != ROUTE_REGS;   // the large route streams as the wide
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
   if (threadIdx.x != N_CONSUMER_THREADS) return;
-  const MlpSmem S = mlp_carve<WIDE>(raw, P);
+  const MlpSmem S = mlp_carve<ROUTE>(raw, P);
   const int n_trunk = WIDE ? 0 : trunk_chunks(P.H, P.EP, P.n_layers);
   const int n_chunks = WIDE ? wide_stream_chunks(P.H, P.EP, P.EDP, P.n_layers)
                                  : stream_chunks(P.H, P.EP, P.EDP, P.n_layers);
@@ -784,11 +840,190 @@ __device__ __forceinline__ void mlp_pass_wide(const MlpArgs& P, const MlpSmem& S
   }
 }
 
-// The pass of a kernel instantiated for hidden width H.
+// ---- the large route: one warpgroup's 64 rows at any H > 512 ----
+
+// The calling thread's four 16-byte units of the 8 KiB slice at g (global).
+// .cg: from L2, where the warpgroup's own stores of the last layer are.
+__device__ __forceinline__ void load_slice(uint4 (&v)[4], const bf16* g) {
+  const uint4* src = reinterpret_cast<const uint4*>(g) + threadIdx.x % WG_THREADS;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = __ldcg(src + WG_THREADS * i);
+}
+
+// ... into the shared slot at slot, in the same order (the slice is already
+// in the swizzled layout).
+__device__ __forceinline__ void store_slice(uint32_t slot, const uint4 (&v)[4]) {
+  const uint32_t a = slot + 16 * (threadIdx.x % WG_THREADS);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+                 :: "r"(a + 16 * WG_THREADS * i), "r"(v[i].x), "r"(v[i].y),
+                    "r"(v[i].z), "r"(v[i].w) : "memory");
+}
+
+// mma_wide_chunk with A0 in global memory: acc (64 x NCW) = A0 (64 x 64 n0,
+// global at g0, 8 KiB a slice) @ W + A1 (64 x 64 n1, shared at a1) @ W'. The
+// slices of A0 pass through the two A slots at slots (warp-uniform n0, n1;
+// n0 + n1 >= 1).
+__device__ __forceinline__ void mma_large_chunk(float* acc, const bf16* g0, int n0,
+                                                uint32_t a1, int n1, uint32_t slots,
+                                                int wg, Pipe& P) {
+  uint4 v[4];
+  if (n0 > 0) {
+    load_slice(v, g0);
+    wg_sync(wg);   // every warp's last wgmmas on the slots are done
+    store_slice(slots, v);
+    fence_async_smem();
+    wg_sync(wg);
+  }
+  wgmma_fence();
+  int prev = -1, scale = 0;
+  for (int c = 0; c < n0; ++c) {
+    int st;
+    const uint64_t db = sdesc(P.acquire(st));
+    if (c + 1 < n0) load_slice(v, g0 + (c + 1) * (WG_ROWS * KC));
+    const uint64_t da = sdesc(slots + (c & 1) * A_CHUNK_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      Wgmma<NCW>::ss(acc, da + 2 * kk, db + 2 * kk, scale);
+      scale = 1;
+    }
+    wgmma_commit();
+    if (c > 0) {
+      wgmma_wait<1>();
+      P.release(prev);
+    }
+    prev = st;
+    if (c + 1 < n0) {
+      wg_sync(wg);   // every warp has waited out slice c - 1, the other slot's
+      store_slice(slots + ((c + 1) & 1) * A_CHUNK_BYTES, v);
+      fence_async_smem();
+      wg_sync(wg);
+    }
+  }
+  for (int c = 0; c < n1; ++c) {
+    int st;
+    const uint64_t db = sdesc(P.acquire(st));
+    const uint64_t da = sdesc(a1 + c * A_CHUNK_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      Wgmma<NCW>::ss(acc, da + 2 * kk, db + 2 * kk, scale);
+      scale = 1;
+    }
+    wgmma_commit();
+    if (n0 > 0 || c > 0) {
+      wgmma_wait<1>();
+      P.release(prev);
+    }
+    prev = st;
+  }
+  wgmma_wait<0>();
+  P.release(prev);
+  fence_regs<NCW / 2>(acc);
+}
+
+// Chunk c of a layer's output (the epilogue's registers) into the 64 x H
+// buffer g (global, swizzled as act; wide_store's addressing).
+__device__ __forceinline__ void store_chunk_global(bf16* g, const uint32_t (&hc)[NCW / 4],
+                                                   int c) {
+  const int lane = threadIdx.x & 31;
+  const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2), c2 = 2 * (lane & 3);
+  bf16* row = g + (NCW * c / KC) * (WG_ROWS * KC) + r * KC + c2;
+#pragma unroll
+  for (int j = 0; j < NCW / 8; ++j) {
+    const int u = ((NCW * c % KC / 8 + j) ^ (r & 7)) << 3;
+    *reinterpret_cast<uint32_t*>(row + u) = hc[2 * j];
+    *reinterpret_cast<uint32_t*>(row + 8 * KC + u) = hc[2 * j + 1];
+  }
+}
+
+// mlp_pass for any hidden width H = P.H above 512 (a multiple of 128): the
+// same layers, rounding points and outputs as mlp_pass_wide, with layer l
+// reading its input from buffer (l + 1) % 2 of the warpgroup's scratch pair
+// and writing buffer l % 2.
+__device__ inline void mlp_pass_large(const LargeMlpArgs& P, const MlpSmem& S,
+                                      int wg, Pipe& pipe) {
+  const int H = __shfl_sync(0xffffffffu, P.H, 0);
+  const int kh = H / KC, nch = H / NCW;
+  const int ke = __shfl_sync(0xffffffffu, P.EP / KC, 0);
+  const int kd = __shfl_sync(0xffffffffu, P.EDP / KC, 0);
+  const int n_layers = __shfl_sync(0xffffffffu, P.n_layers, 0);
+  const int skip = __shfl_sync(0xffffffffu, P.skip_pos, 0);
+  const uint32_t enc = smem_addr(S.enc[wg]), ed = smem_addr(S.ed[wg]);
+  const uint32_t slots = smem_addr(S.act[wg]);
+  bf16* buf[2];
+  buf[0] = P.scratch + size_t(blockIdx.x * N_CONSUMERS + wg) * 2 * WG_ROWS * H;
+  buf[1] = buf[0] + size_t(WG_ROWS) * H;
+  const int lane = threadIdx.x & 31;
+  const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  float sg0 = 0.0f, sg1 = 0.0f;
+  // the trunk, then the feature layer (l = n_layers, no activation)
+  for (int l = 0; l <= n_layers; ++l) {
+    const bool first = l == 0, feat = l == n_layers;
+    const bf16* bias = first ? P.p[B0]
+                       : feat ? P.p[B_FEAT]
+                       : l == skip ? P.p[BSKIP]
+                                   : P.p[B_MID] + H * (l - 1 - (l > skip));
+    const int n_enc = first || l == skip ? ke : 0;
+    for (int c = 0; c < nch; ++c) {
+      float acc[NCW / 2];
+      uint32_t hc[NCW / 4];
+      mma_large_chunk(acc, buf[(l + 1) & 1], first ? 0 : kh, enc, n_enc, slots, wg,
+                      pipe);
+      if (feat) {
+        epilogue<NCW, false>(acc, hc, bias + NCW * c);
+      } else {
+        epilogue<NCW, true>(acc, hc, bias + NCW * c);
+        if (l == n_layers - 1) {   // sigma from the last trunk activation
+          float a, b;
+          row_dots<NCW>(hc, P.p[W_SIG] + NCW * c, a, b);
+          sg0 += a;
+          sg1 += b;
+        }
+      }
+      store_chunk_global(buf[l & 1], hc, c);
+    }
+    wg_sync(wg);   // the layer's output is in place before the next reads it
+  }
+  float* out = S.out[wg];
+  if ((lane & 3) == 0) {
+    const float bs = __bfloat162float(P.p[B_SIG][0]);
+    out[r * 4 + 3] = sg0 + bs;
+    out[(r + 8) * 4 + 3] = sg1 + bs;
+  }
+  // the colour head (width H/2) on [feature, enc_dir], one chunk at a time
+  const bf16* feature = buf[n_layers & 1];
+  float rgb[3][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
+  for (int c = 0; c < nch / 2; ++c) {
+    float acc[NCW / 2];
+    uint32_t hc[NCW / 4];
+    mma_large_chunk(acc, feature, kh, ed, kd, slots, wg, pipe);
+    epilogue<NCW, true>(acc, hc, P.p[BC1] + NCW * c);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float a, b;
+      row_dots<NCW>(hc, P.p[WC2T] + k * (H / 2) + NCW * c, a, b);
+      rgb[k][0] += a;
+      rgb[k][1] += b;
+    }
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float b = __bfloat162float(P.p[BC2][k]);
+      out[r * 4 + k] = rgb[k][0] + b;
+      out[(r + 8) * 4 + k] = rgb[k][1] + b;
+    }
+  }
+}
+
+// The pass of a kernel instantiated for hidden width H (0: the large route).
 template <int H>
 __device__ __forceinline__ void mlp_pass_any(const MlpArgs& P, const MlpSmem& S,
                                              int wg, Pipe& pipe) {
-  if constexpr (H > 256)
+  if constexpr (H == 0)
+    mlp_pass_large(static_cast<const LargeMlpArgs&>(P), S, wg, pipe);
+  else if constexpr (H > 256)
     mlp_pass_wide<H / NCW>(P, S, wg, pipe);
   else
     mlp_pass<H>(P, S, wg, pipe);
@@ -797,16 +1032,21 @@ __device__ __forceinline__ void mlp_pass_any(const MlpArgs& P, const MlpSmem& S,
 // ---- host side ----
 
 // The shapes the kernels take: hidden width 128 or 256 (one accumulator in
-// registers) or 384 or 512 (the wide path; ops/fused_mlp.py raises for the
-// others on CUDA), EP a multiple of 64, ED of 16, one skip layer inside the
-// trunk.
-inline bool mlp_shape_ok(int H, int EP, int ED, int n_layers, int skip_pos) {
-  return (H == 128 || H == 256 || H == 384 || H == 512) && EP > 0 && EP % KC == 0 &&
-         ED > 0 && ED % 16 == 0 && n_layers >= 3 && skip_pos > 0 && skip_pos < n_layers;
+// registers), 384 or 512 (the wide path) or, with scratch, any multiple of
+// 128 above 512 (the large route), EP a multiple of 64, ED of 16, one skip
+// layer inside the trunk.
+inline bool mlp_shape_ok(int H, int EP, int ED, int n_layers, int skip_pos,
+                         bool scratch) {
+  const bool h_ok = H > 512 ? scratch && H % 128 == 0
+                            : H == 128 || H == 256 || H == 384 || H == 512;
+  return h_ok && EP > 0 && EP % KC == 0 && ED > 0 && ED % 16 == 0 && n_layers >= 3 &&
+         skip_pos > 0 && skip_pos < n_layers;
 }
 
-// Hidden widths that take the wide path.
-inline bool is_wide(int H) { return H > 256; }
+// The route of hidden width H at run time.
+inline int mlp_route(int H) {
+  return H > 512 ? ROUTE_LARGE : H > 256 ? ROUTE_WIDE : ROUTE_REGS;
+}
 
 inline MlpArgs make_mlp_args(const void* wpack, const long long* offsets,
                              const void* staged, int H, int EP, int ED,
@@ -820,11 +1060,19 @@ inline MlpArgs make_mlp_args(const void* wpack, const long long* offsets,
   return a;
 }
 
+inline LargeMlpArgs make_large_args(const MlpArgs& a, void* scratch, int scratch_blocks) {
+  LargeMlpArgs l;
+  static_cast<MlpArgs&>(l) = a;
+  l.scratch = static_cast<bf16*>(scratch);
+  l.scratch_blocks = scratch_blocks;
+  return l;
+}
+
 // The most weight stages (2..MAX_STAGES) that fit in shared memory beside
 // the rest; → the block's dynamic shared memory, 0 if not even two fit.
 inline size_t plan_stages(MlpArgs& a, size_t extra_bytes) {
   for (int ns = MAX_STAGES; ns >= 2; --ns) {
-    const MlpLayout L(a.H, a.EP, a.EDP, a.n_layers, ns, extra_bytes, is_wide(a.H));
+    const MlpLayout L(a.H, a.EP, a.EDP, a.n_layers, ns, extra_bytes, mlp_route(a.H));
     if (L.total <= SMEM_LIMIT) {
       a.NS = ns;
       return L.total;
@@ -841,6 +1089,16 @@ inline int sm_count() {
     cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
   }
   return n;
+}
+
+// Persistent blocks for `units` tiles of work: one per SM at most, and on the
+// large route no more than its scratch holds.
+inline int grid_blocks(int units, const MlpArgs&) {
+  return units < sm_count() ? units : sm_count();
+}
+inline int grid_blocks(int units, const LargeMlpArgs& P) {
+  const int n = grid_blocks(units, static_cast<const MlpArgs&>(P));
+  return n < P.scratch_blocks ? n : P.scratch_blocks;
 }
 
 // Set the kernel's shared memory and check that its register allocation

@@ -65,6 +65,7 @@ def nerf_forward_pass(
     viewdirs_world_unit: torch.Tensor | None = None,  # (B, 3)
     sigma_activation: str = "relu",
     raw_noise_std: float = 0.0,
+    noise: torch.Tensor | None = None,    # (B, N) or (B·N,) N(0, 1) draws
     infinite_last_bin: bool = False,
     compute_dtype: torch.dtype = torch.float32,
     use_kernel: bool = False,
@@ -84,13 +85,13 @@ def nerf_forward_pass(
     encode through K3, which folds a 4-D grid at one time; rays of a 4-D grid
     at different times are encoded per sample in plain PyTorch, as JAX does.
     ``ipe=True`` needs the frequency encoder and per-ray ``radii``.
+    ``raw_noise_std`` > 0 with standard-normal ``noise`` adds
+    ``noise · raw_noise_std`` to the pre-activation sigma, in fp32 then cast
+    to sigma's type (JAX models/forward.py:161-163); without ``noise``, as
+    JAX without a noise key, none is added.
     """
     check_ported_forward(pos_encoder=pos_encoder, ipe=ipe,
                          dir_encoder=dir_encoder)
-    if raw_noise_std > 0.0:
-        raise NotImplementedError(
-            "train-time sigma noise comes with the train step, ROADMAP "
-            "queue 1, P4")
     dev = resolve_device(device)
     rays_o, rays_d_unit, z_vals = (t.to(dev, torch.float32)
                                    for t in (rays_o, rays_d_unit, z_vals))
@@ -151,6 +152,9 @@ def nerf_forward_pass(
         out = model(enc_pos, enc_dir, compute_dtype=mlp_dtype)
     rgb = torch.sigmoid(out[..., :3])
     sigma = out[..., 3]
+    if raw_noise_std > 0.0 and noise is not None:
+        noise = noise.to(dev, torch.float32).reshape(sigma.shape)
+        sigma = sigma + (noise * raw_noise_std).to(sigma.dtype)
     if sigma_activation == "softplus":
         sigma = torch.nn.functional.softplus(sigma)
     else:

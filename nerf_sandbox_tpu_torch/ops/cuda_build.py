@@ -32,9 +32,11 @@ SOURCES = ("fused_mlp", "fused_raymarch", "kplanes_encode", "precision_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Sources compiled in parts (-DNERF_PART=0..n-1), all at once, then linked
-# into one library: K2's 24 instantiations in twelve groups of two
-# (csrc/fused_raymarch.cu), which would take minutes in one compiler.
-PARTS = {"fused_raymarch": 12}
+# into one library: K2's 30 instantiations in eighteen groups, per encoder
+# and contraction two for hidden widths 128 / 256, two for 384 / 512 and one
+# for the large route (csrc/fused_raymarch.cu), which would take minutes in
+# one compiler.
+PARTS = {"fused_raymarch": 18}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

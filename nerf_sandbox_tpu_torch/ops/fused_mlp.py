@@ -9,7 +9,11 @@ L2 once per ``TILE_M`` = 128 rows; a producer warp streams them into shared
 memory as one bulk copy per stage, from the buffer :func:`stage_weights`
 lays out (design notes in ``csrc/mlp_tile.cuh``). Hidden activations stay
 in registers between layers at hidden widths 128 and 256; at 384 and 512
-they sit in shared memory and each layer runs in chunks of 32 columns.
+they sit in shared memory and each layer runs in chunks of 32 columns; at
+every wider multiple of 128 (the large route, one instantiation for all)
+they sit in a ping-pong pair of global buffers per warpgroup, the scratch
+:func:`large_scratch` allocates per call, and each chunk copies its input
+through shared memory. The kernels take every width JAX's ``fusable`` takes.
 
 Rounding points are those of the TPU kernel: bf16 operands, fp32
 accumulation, fp32 add of the bf16-rounded bias, relu then a bf16 cast
@@ -19,7 +23,8 @@ activation, the feature cast to bf16 before the colour head.
 :func:`fused_nerf_apply_plain` is the same function in plain PyTorch (bf16
 values upcast to fp32, fp32 products with TF32 off). :func:`fused_nerf_apply`
 takes it only for CPU tensors; for CUDA tensors it launches the kernel or
-raises, and counts the launch in ``fused_nerf_apply.launches``.
+raises, and counts the launch in ``fused_nerf_apply.launches`` (launches on
+the large route also in ``fused_nerf_apply.large_launches``).
 """
 
 from __future__ import annotations
@@ -36,7 +41,11 @@ from nerf_sandbox_tpu_torch.ops import cuda_build
 TILE_M = 128                 # rows per weight fetch (csrc/mlp_tile.cuh)
 KC = 64                      # K rows of one weight stage (csrc/mlp_tile.cuh)
 NCW = 32                     # output columns of a wide stage (csrc/mlp_tile.cuh)
-KERNEL_HIDDEN = (128, 256, 384, 512)   # hidden widths the CUDA kernels take
+N_CONSUMERS = 2              # consumer warpgroups of a block (csrc/mlp_tile.cuh)
+WG_ROWS = 64                 # rows of one consumer warpgroup (csrc/mlp_tile.cuh)
+# hidden widths with a compile-time path; every other multiple of 128 takes
+# the large route (activations in global scratch, csrc/mlp_tile.cuh)
+KERNEL_HIDDEN = (128, 256, 384, 512)
 PLAIN_ROWS = 1 << 18         # row chunk of the plain version (bounds memory)
 _ALIGN = 64                  # packed arrays start on 128-byte boundaries
 
@@ -181,10 +190,10 @@ def stage_weights(cfg: NeRFConfig, views: dict) -> torch.Tensor:
     """The weight stream of the CUDA kernels, in the order their stages use
     it, each stage one contiguous bulk copy in the layout wgmma reads
     (:func:`_stage_array`). Hidden width 128 / 256: each array of
-    :func:`_stream_layers` whole, stages of 64 K rows x N. 384 / 512 (the
-    wide path): per matmul and per chunk of ``NCW`` output columns, the
-    chunk's columns of each of its arrays, stages of 64 x NCW. → a flat bf16
-    tensor (stages back to back)."""
+    :func:`_stream_layers` whole, stages of 64 K rows x N. 384 and wider
+    (the wide path and the large route): per matmul and per chunk of
+    ``NCW`` output columns, the chunk's columns of each of its arrays,
+    stages of 64 x NCW. → a flat bf16 tensor (stages back to back)."""
     layers = _stream_layers(cfg, views)
     if cfg.hidden_dim <= 256:
         parts = [_stage_array(w) for layer in layers for w in layer]
@@ -195,23 +204,33 @@ def stage_weights(cfg: NeRFConfig, views: dict) -> torch.Tensor:
 
 
 def check_kernel_shape(cfg: NeRFConfig) -> None:
-    """Raise for a (fusable) MLP the CUDA kernels do not take, never falling
-    back: hidden widths 128 and 256 keep a layer's accumulator in registers,
-    384 and 512 their activations in shared memory (at most 16 chunks of 32
-    columns held in registers); wider ones fit neither."""
-    H = cfg.hidden_dim
-    if H not in KERNEL_HIDDEN:
+    """Raise for an MLP the CUDA kernels do not take, exactly where JAX's
+    ``fusable`` (``nerf_sandbox_tpu/ops/fused_mlp.py``) is False: a hidden
+    width that is not a multiple of 128, a skip layer outside the trunk,
+    fewer than three layers. Hidden widths 128 / 256 keep a layer's
+    accumulator in registers, 384 / 512 their activations in shared memory,
+    wider ones in global scratch (the large route)."""
+    H, n, skip = cfg.hidden_dim, cfg.n_layers, cfg.skip_pos
+    if H % 128 or not 0 < skip < n or n < 3:
         raise ValueError(
-            f"the CUDA kernels take hidden widths {KERNEL_HIDDEN}, not {H}: the "
-            f"wide path holds a layer's 64 x {H} bf16 output in registers until "
-            f"its last chunk is done, {H // 4} registers a thread where 128 (H = "
-            f"512) is the most that leaves the rest of the kernel room in the "
-            f"240 a consumer thread has; and a block's shared memory holds the two "
-            f"warpgroups' activations (2 x 64 x H x 2 bytes = "
-            f"{2 * 64 * H * 2 // 1024} KiB), enc and enc_dir (2 x 64 x (EP + EDP) "
-            f"x 2 bytes), the biases (about (n_layers + 4) x H x 2 bytes), K2's "
-            f"per-ray state (7 KiB) and at least two 4 KiB weight stages, within "
-            f"the 227 KiB a block may have")
+            f"the CUDA kernels take the MLPs JAX's fusable takes: hidden width "
+            f"a multiple of 128 (got {H}), 0 < skip_pos < n_layers (got "
+            f"skip_pos {skip}, n_layers {n}) and n_layers >= 3")
+
+
+def is_large(cfg: NeRFConfig) -> bool:
+    """True where the kernels take the large route (hidden width above 512)."""
+    return cfg.hidden_dim > KERNEL_HIDDEN[-1]
+
+
+def large_scratch(cfg: NeRFConfig, device) -> tuple[torch.Tensor, int]:
+    """The large route's activation scratch for one launch: a ping-pong pair
+    of 64 x H bf16 buffers for each consumer warpgroup of each persistent
+    block, sized from the grid (one block per SM), not from the batch
+    (~66 MiB at H = 1024 on 132 SMs). → (tensor, blocks it serves)."""
+    blocks = torch.cuda.get_device_properties(device).multi_processor_count
+    n = blocks * N_CONSUMERS * 2 * WG_ROWS * cfg.hidden_dim
+    return torch.empty(n, dtype=torch.bfloat16, device=device), blocks
 
 
 def as_packed(model) -> PackedMLP:
@@ -299,18 +318,25 @@ def _launch(packed: PackedMLP, enc_pos: torch.Tensor,
     out = torch.empty((Q, 4), dtype=torch.float32, device=ep.device)
     ep_pad, ed_pad = _enc_pads(cfg)
     lib = cuda_build.load("fused_mlp")
-    fn = lib.nerf_fused_mlp
+    large = is_large(cfg)
+    fn = lib.nerf_fused_mlp_large if large else lib.nerf_fused_mlp
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_void_p] + [ctypes.c_int] * 8
+                   + ([ctypes.c_void_p, ctypes.c_int] if large else [])
                    + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
+    extra = []
+    if large:
+        scratch, blocks = large_scratch(cfg, ep.device)
+        extra = [_ptr(scratch), blocks]
     stream = torch.cuda.current_stream(ep.device).cuda_stream
     err = fn(_ptr(ep), _ptr(ed), _ptr(packed.flat), offsets_arg(packed),
              _ptr(packed.staged), Q, cfg.enc_pos_dim, cfg.enc_dir_dim,
              cfg.hidden_dim, ep_pad, ed_pad, cfg.n_layers, cfg.skip_pos,
-             _ptr(out), ctypes.c_void_p(stream))
+             *extra, _ptr(out), ctypes.c_void_p(stream))
     cuda_build.check(lib, err, "fused_mlp kernel launch")
     fused_nerf_apply.launches += 1
+    fused_nerf_apply.large_launches += int(large)
     return out
 
 
@@ -334,3 +360,4 @@ def fused_nerf_apply(model: NeRFMLP | PackedMLP, enc_pos: torch.Tensor,
 
 
 fused_nerf_apply.launches = 0
+fused_nerf_apply.large_launches = 0

@@ -21,7 +21,8 @@ rays and loops over their samples 4 at a time, 64 rows per pass of the
 with the per-ray accumulators in registers — the TPU's sequential-grid carry
 becomes a loop inside the block — and ERT ends a group once all its rays
 have T < eps. The encoder, the contraction and the hidden width (128, 256,
-384 or 512; the last two on the wide path of ``csrc/mlp_tile.cuh``) are
+384 or 512; the last two on the wide path of ``csrc/mlp_tile.cuh``; every
+wider multiple of 128 on its large route, one instantiation for all) are
 template parameters of the kernel.
 
 :func:`fused_raymarch_plain` is the same function in plain PyTorch with the
@@ -29,8 +30,8 @@ kernel's bf16 rounding points; it marches every sample (ERT changes each
 output by less than ``ert_eps`` per channel). :func:`fused_raymarch` takes it
 only for CPU tensors; for CUDA tensors it launches the kernel or raises, and
 counts the launch in ``fused_raymarch.launches`` and, per route (``freq``,
-``kplanes`` or ``ipe``: the encoder; ``contract``, ``tfold``: the other
-branches the launch ran), in ``fused_raymarch.route_launches``.
+``kplanes`` or ``ipe``: the encoder; ``contract``, ``tfold``, ``large``: the
+other branches the launch ran), in ``fused_raymarch.route_launches``.
 
 K4 computes each sample's interval from its neighbours in the kernel (the
 row of z is in device memory; the TPU streamed μ and the half-width because
@@ -53,7 +54,7 @@ from nerf_sandbox_tpu_torch.models.mlp import NeRFMLP
 from nerf_sandbox_tpu_torch.ops import cuda_build
 from nerf_sandbox_tpu_torch.ops.fused_mlp import (
     PLAIN_ROWS, PackedMLP, _enc_pads, _ptr, as_packed, check_kernel_shape,
-    mlp_rows_plain, offsets_arg, pad_cols_bf16)
+    is_large, large_scratch, mlp_rows_plain, offsets_arg, pad_cols_bf16)
 from nerf_sandbox_tpu_torch.ops.kplanes_encode import (
     KP_C_ARGTYPES, PackedKPlanes, check_kernel_shapes, kp_c_args,
     kplanes_encode_plain, pack_kplanes)
@@ -61,7 +62,7 @@ from nerf_sandbox_tpu_torch.ops.kplanes_encode import (
 RAYS_PER_GROUP = 32          # csrc/fused_raymarch.cu: RAYS
 SAMPLES_PER_PASS = 4         # csrc/fused_raymarch.cu: SPC
 MAX_BANDS = 32               # csrc/fused_raymarch.cu: MAX_BANDS
-ROUTES = ("freq", "kplanes", "ipe", "contract", "tfold")
+ROUTES = ("freq", "kplanes", "ipe", "contract", "tfold", "large")
 
 
 def _deltas(z_vals: torch.Tensor, ray_norms: torch.Tensor,
@@ -212,14 +213,21 @@ def _launch(packed: PackedMLP, rays_o, rays_d_unit, z_vals, ray_norms,
     out_ray = torch.empty((B, 5), dtype=torch.float32, device=dev)
     out_w = torch.empty((B, N), dtype=torch.float32, device=dev)
     lib = cuda_build.load("fused_raymarch")
-    fn = lib.nerf_fused_raymarch
+    large = is_large(cfg)
+    fn = lib.nerf_fused_raymarch_large if large else lib.nerf_fused_raymarch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.POINTER(ctypes.c_float)]
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
                    + [ctypes.c_int] * 11
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-                   + KP_C_ARGTYPES + [ctypes.c_void_p] * 3)
+                   + KP_C_ARGTYPES
+                   + ([ctypes.c_void_p, ctypes.c_int] if large else [])
+                   + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
+    extra = []
+    if large:
+        scratch, blocks = large_scratch(cfg, dev)
+        extra = [_ptr(scratch), blocks]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(_ptr(ro), _ptr(rd), _ptr(rn), _ptr(ed), _ptr(z), int(infinite_last_bin),
              (ctypes.c_float * max(1, bands.size))(*bands.tolist()),
@@ -231,7 +239,7 @@ def _launch(packed: PackedMLP, rays_o, rays_d_unit, z_vals, ray_norms,
              int(ert_eps > 0.0),
              float(np.log(ert_eps)) if ert_eps > 0.0 else 0.0,
              int(contract), None if radii is None else _ptr(radii), *kp_args,
-             _ptr(out_ray), _ptr(out_w), ctypes.c_void_p(stream))
+             *extra, _ptr(out_ray), _ptr(out_w), ctypes.c_void_p(stream))
     cuda_build.check(lib, err, "fused_raymarch kernel launch")
     fused_raymarch.launches += 1
     routes = fused_raymarch.route_launches
@@ -239,6 +247,7 @@ def _launch(packed: PackedMLP, rays_o, rays_d_unit, z_vals, ray_norms,
            else "freq"] += 1
     routes["contract"] += int(contract)
     routes["tfold"] += int(kp is not None and kp.t is not None)
+    routes["large"] += int(large)
     return out_ray, out_w
 
 

@@ -228,6 +228,40 @@ def test_resample_and_merge_match_jax():
         np.asarray(jsamp.merge_z_samples(jnp.asarray(z), want)), atol=ATOL)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_resample_with_injected_draws_matches_jax(seed):
+    """Stochastic fine samples: JAX draws ``uniform(key, (B, n))`` inside
+    ``sample_pdf``; the same array given as ``u=`` gives the same z's."""
+    rng = np.random.RandomState(seed)
+    z = np.sort(rng.uniform(2, 6, (9, 32)), axis=-1).astype(np.float32)
+    w = rng.uniform(0, 0.3, (9, 32)).astype(np.float32)
+    key = jax.random.PRNGKey(seed)
+    want = jsamp.resample_midpoints(jnp.asarray(z), jnp.asarray(w), 48, key=key)
+    u = np.asarray(jax.random.uniform(key, (9, 48), dtype=jnp.float32))
+    got = tsamp.resample_midpoints(t(z), t(w), 48, u=t(u))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("lindisp", [False, True])
+def test_distortion_loss_matches_jax(lindisp):
+    """mip-NeRF 360's L_dist and its gradient in the weights, 1e-6 relative
+    (fp32 prefix sums in another order)."""
+    rng = np.random.RandomState(int(lindisp))
+    near, far = (0.5, 8.0) if lindisp else (2.0, 6.0)
+    z = np.sort(rng.uniform(near, far, (11, 24)), axis=-1).astype(np.float32)
+    w = (rng.uniform(0, 1, (11, 24)) ** 4 * 0.3).astype(np.float32)
+    want = jsamp.distortion_loss(jnp.asarray(z), jnp.asarray(w), near, far,
+                                 lindisp=lindisp)
+    gw = jax.grad(lambda w_: jsamp.distortion_loss(jnp.asarray(z), w_, near, far,
+                                                   lindisp=lindisp))(jnp.asarray(w))
+    tw = t(w).requires_grad_(True)
+    got = tsamp.distortion_loss(t(z), tw, near, far, lindisp=lindisp)
+    got.backward()
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(gw), rtol=1e-5, atol=1e-7)
+    assert float(got) > 0
+
+
 # ---------------- integrator ----------------
 
 @pytest.mark.parametrize("ilb", [False, True])

@@ -1,6 +1,7 @@
 """The CUDA kernels K1 (fused MLP), K2 (fused ray-march, with its K2c
 contraction, K3 k-planes and K4 IPE branches), K3's encode-only entry and K5
-(the precision probe) against their plain PyTorch versions, on the card. Every test here carries the ``cuda``
+(the precision probe) against their plain PyTorch versions, and the train step
+(``train/step.py``) against the same step on the CPU, on the card. Every test here carries the ``cuda``
 marker and skips without a CUDA device (the ``cuda`` fixture decides at run
 time). This file imports neither JAX nor the JAX package, so it also runs on
 a machine that has only PyTorch:
@@ -103,20 +104,25 @@ def test_k1_rejects_bad_inputs(cuda):
 
 
 WIDE = {"8x384": NeRFConfig(63, 27, n_layers=8, hidden_dim=384, skip_pos=4),
-        "8x512": NeRFConfig(63, 27, n_layers=8, hidden_dim=512, skip_pos=4)}
+        "8x512": NeRFConfig(63, 27, n_layers=8, hidden_dim=512, skip_pos=4),
+        "8x640": NeRFConfig(63, 27, n_layers=8, hidden_dim=640, skip_pos=4),
+        "8x1024": NeRFConfig(63, 27, n_layers=8, hidden_dim=1024, skip_pos=4)}
 
 
 @pytest.mark.parametrize("wname", WIDE)
 @pytest.mark.parametrize("q", [1, 127, 129, 70000])
 def test_k1_wide_matches_plain(cuda, wname, q):
     """Hidden widths 384 and 512: the wide path (activations in shared
-    memory, layers in 32-column chunks)."""
+    memory, layers in 32-column chunks); 640 and 1024: the large route
+    (activations in global scratch)."""
     m = _model(WIDE[wname], 20, cuda)
     ep, ed = _enc(q, q + 1, cuda)
     before = fm.fused_nerf_apply.launches
+    large = fm.fused_nerf_apply.large_launches
     got = fm.fused_nerf_apply(m, ep, ed)
     torch.cuda.synchronize()
     assert fm.fused_nerf_apply.launches == before + 1
+    assert fm.fused_nerf_apply.large_launches == large + int(fm.is_large(m.cfg))
     want = fm.fused_nerf_apply_plain(fm.pack_nerf_params(m), ep, ed)
     assert got.shape == (q, 4) and torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 0.05
@@ -130,11 +136,11 @@ K2_ROUTES = ("freq", "freq_contract", "ipe", "ipe_contract", "kplanes",
 @pytest.mark.parametrize("wname", WIDE)
 @pytest.mark.parametrize("b", [1, 33, 16385])
 def test_k2_wide_routes_match_plain(cuda, route, wname, b):
-    """Every K2 route on the wide instantiation, B off the ray groups, N = 63
-    off the passes; a finite last bin, so every ray is held: comp, w and acc
-    at 2e-2, depth as sum(w z) at 2e-2 x z_far. The k-planes routes run the
-    full-width grid (71 columns padded to 128, the tightest shared-memory
-    budget)."""
+    """Every K2 route on the wide instantiations (384, 512) and on the large
+    route (640, 1024), B off the ray groups, N = 63 off the passes; a finite
+    last bin, so every ray is held: comp, w and acc at 2e-2, depth as
+    sum(w z) at 2e-2 x z_far. The k-planes routes run the full-width grid
+    (71 columns padded to 128, the tightest shared-memory budget)."""
     cfg = WIDE[wname]
     contract = route.endswith("contract")
     rays = _rays(b, 63, 21, cuda)
@@ -155,6 +161,7 @@ def test_k2_wide_routes_match_plain(cuda, route, wname, b):
     routes = fr.fused_raymarch.route_launches
     assert fr.fused_raymarch.launches == 1
     assert routes[route.split("_")[0]] == 1 and routes["contract"] == int(contract)
+    assert routes["large"] == int(cfg.hidden_dim > 512)
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.shape[0] == b
         assert torch.isfinite(g).all()
@@ -163,21 +170,33 @@ def test_k2_wide_routes_match_plain(cuda, route, wname, b):
     assert float((got[3] * got[2] - want[3] * want[2]).abs().max()) <= 2e-2 * 6.0
 
 
-def test_hidden_width_the_kernels_do_not_take_raises(cuda):
-    """A fusable MLP wider than the wide path's 512 columns raises on CUDA (it
-    never falls back to the plain version)."""
-    wide = NeRFConfig(63, 27, n_layers=3, hidden_dim=640, skip_pos=1)
-    assert fm.fusable(wide)
-    m = _model(wide, 0, cuda)
+@pytest.mark.parametrize("shape", [(8, 192, 4), (8, 256, 0), (2, 256, 1),
+                                   (3, 640, 1), (3, 1024, 1)])
+def test_hidden_width_the_kernels_do_not_take_raises(cuda, shape):
+    """Only an MLP that JAX's fusable refuses (hidden width off a multiple of
+    128, skip layer outside the trunk, fewer than three layers) raises on
+    CUDA, before any launch (it never falls back to the plain version);
+    hidden widths 640 and 1024 launch K1 and K2 on the large route."""
+    n_layers, hidden, skip = shape
+    cfg = NeRFConfig(63, 27, n_layers=n_layers, hidden_dim=hidden, skip_pos=skip)
+    m = _model(cfg, 0, cuda)
     ep, ed = _enc(8, 0, cuda)
-    k1, k2 = fm.fused_nerf_apply.launches, fr.fused_raymarch.launches
-    with pytest.raises(ValueError, match="hidden widths"):
-        fm.fused_nerf_apply(m, ep, ed)
     o, d, nr, z = _rays(8, 16, 0, cuda)
     pos_b, dir_b = vanilla_encoders()
-    with pytest.raises(ValueError, match="hidden widths"):
-        fr.fused_raymarch(m, o, d, z, nr, positional_encoding(d, dir_b), pos_b)
-    assert fm.fused_nerf_apply.launches == k1 and fr.fused_raymarch.launches == k2
+    k1, k2 = fm.fused_nerf_apply.launches, fr.fused_raymarch.launches
+    if not fm.fusable(cfg):
+        with pytest.raises(ValueError, match="fused kernels do not cover"):
+            fm.fused_nerf_apply(m, ep, ed)
+        with pytest.raises(ValueError, match="fused kernels do not cover"):
+            fr.fused_raymarch(m, o, d, z, nr, positional_encoding(d, dir_b), pos_b)
+        assert fm.fused_nerf_apply.launches == k1 and fr.fused_raymarch.launches == k2
+        return
+    fm.check_kernel_shape(cfg)
+    fm.fused_nerf_apply(m, ep, ed)
+    fr.fused_raymarch(m, o, d, z, nr, positional_encoding(d, dir_b), pos_b)
+    torch.cuda.synchronize()
+    assert fm.fused_nerf_apply.launches == k1 + 1
+    assert fr.fused_raymarch.launches == k2 + 1
 
 
 def _k2_pair(m, rays, dev, **kw):
@@ -657,3 +676,84 @@ def test_k5_matches_plain(cuda, mode):
         tol = a.shape[1] * 2.0 ** -23 * (a.double().abs() @ b.double().abs())
         assert got.dtype == torch.float32 and got.shape == want.shape
         assert bool(((got.double() - want).abs() <= tol).all()), (name, mode)
+
+
+def _train_setup(dev, compute, rays=256):
+    from nerf_sandbox_tpu_torch.data.sampler import RayBatchSpec, SceneArrays
+    from nerf_sandbox_tpu_torch.data.scene import Frame, Scene
+    from nerf_sandbox_tpu_torch.train import step as ts
+    rng = np.random.RandomState(0)
+    K = np.array([[40.0, 0, 16], [0, 40.0, 12], [0, 0, 1]], np.float32)
+    frames = []
+    for i in range(3):
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[:3, 3] = [0.3 * i, 0.0, 4.0]
+        frames.append(Frame(image=rng.randint(0, 256, (24, 32, 4)).astype(np.uint8),
+                            K=K, c2w=c2w))
+    scene = Scene(frames)
+    hyper = ts.TrainHyper(model=NeRFConfig(63, 27, n_layers=4, hidden_dim=64, skip_pos=2),
+                          nc=16, nf=32, compute_dtype=compute)
+    spec = RayBatchSpec(rays, 24, 32)
+    tx = ts.make_optimizer(5e-4, "cosine", {"T_max": 100, "eta_min": 5e-6})
+    pos_b, dir_b = vanilla_encoders()
+    out = {}
+    for d in (dev, "cpu"):
+        state = ts.init_train_state(hyper, tx, near=2.0, far=6.0,
+                                    generator=torch.Generator().manual_seed(1), device=d)
+        out[str(torch.device(d).type)] = (
+            state, SceneArrays.from_scene(scene, device=d),
+            ts.build_train_step(hyper, spec, tx, pos_b, dir_b, device=d))
+    return ts, hyper, spec, out
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_train_step_on_card_matches_cpu(cuda, compute):
+    """One step of the port's train step on the card against the same step
+    on the CPU, from the same weights and the same draws (made on the card):
+    the ray batch bit-equal in its targets, loss and PSNR (rtol 1e-3 fp32,
+    1e-2 bf16), each gradient array within 5e-2 of its norm (a fine sample
+    moved by an ulp-level change of the coarse weights moves a gradient by up
+    to 2.8% of its array's norm: JAX's own jitted-versus-op-by-op spread on
+    the CPU, tests/test_torch_train_step.py), the state on the card after the
+    step, and no kernel launched."""
+    ts, hyper, spec, out = _train_setup(cuda, compute)
+    (sg, scene_g, step_g), (sc, scene_c, step_c) = out["cuda"], out["cpu"]
+    draws = ts.make_draws(hyper, spec, scene_g, sg.step + 1,
+                          torch.Generator(device=cuda).manual_seed(3))
+    draws_c = {k: v.cpu() for k, v in draws.items()}
+    from nerf_sandbox_tpu_torch.data.sampler import sample_ray_batch
+    bg = sample_ray_batch(1, scene_g, spec, fids=draws["fids"], ys=draws["ys"],
+                          xs=draws["xs"])
+    bc = sample_ray_batch(1, scene_c, spec, fids=draws_c["fids"], ys=draws_c["ys"],
+                          xs=draws_c["xs"], device="cpu")
+    assert torch.equal(bg["rgb"].cpu(), bc["rgb"])
+    for k in ("rays_o_marching", "rays_d_marching_unit", "radii"):
+        assert float((bg[k].cpu() - bc[k]).abs().max()) <= 1e-5
+    counts = (fm.fused_nerf_apply.launches, fr.fused_raymarch.launches)
+    lg, mg, gg, _ = step_g.loss_and_grads(sg, scene_g, draws)
+    lc, mc, gc, _ = step_c.loss_and_grads(sc, scene_c, draws_c)
+    rtol, gtol = (1e-3, 5e-2) if compute == "float32" else (1e-2, 5e-2)
+    assert abs(float(lg) / float(lc) - 1) <= rtol
+    assert abs(float(ts.mse2psnr(mg)) / float(ts.mse2psnr(mc)) - 1) <= rtol
+    for k in gc:
+        diff = float(torch.linalg.vector_norm(gg[k].cpu() - gc[k]))
+        assert diff <= gtol * float(torch.linalg.vector_norm(gc[k])) + 1e-12, k
+    state, metrics = step_g(sg, scene_g, draws)
+    torch.cuda.synchronize()
+    assert bool(metrics["finite"]) and int(state.step) == 1
+    assert all(p.device.type == "cuda" for p in ts.named_params(state).values())
+    assert (fm.fused_nerf_apply.launches, fr.fused_raymarch.launches) == counts
+
+
+def test_train_steps_on_card_lower_the_loss(cuda):
+    """Twenty steps with the step's own draws (its generator on the card):
+    finite losses that fall."""
+    ts, hyper, spec, out = _train_setup(cuda, "bfloat16", rays=512)
+    state, scene, step = out["cuda"]
+    losses = []
+    for _ in range(20):
+        state, m = step(state, scene)
+        losses.append(m["loss"])
+    losses = torch.stack(losses).cpu().numpy()
+    assert np.isfinite(losses).all() and int(state.step) == 20
+    assert losses[-5:].mean() < losses[:5].mean()

@@ -53,9 +53,10 @@ def test_plain_matches_jax_fused_and_nerf_apply_bf16():
     assert np.std(got) > 1e-3
 
 
-@pytest.mark.parametrize("hidden", [384, 512])
+@pytest.mark.parametrize("hidden", [384, 512, 640])
 def test_wide_plain_matches_jax_fused_and_nerf_apply_bf16(hidden):
-    """Hidden widths 384 and 512 (the kernels' wide path; 3 layers, skip 1)."""
+    """Hidden widths 384 and 512 (the kernels' wide path) and 640 (their
+    large route); 3 layers, skip 1."""
     jcfg = jmlp.NeRFConfig(63, 27, n_layers=3, hidden_dim=hidden, skip_pos=1)
     params = jmlp.init_nerf_params(jax.random.PRNGKey(hidden), jcfg)
     m = tmlp.NeRFMLP(tmlp.NeRFConfig(*jcfg), device="cpu")
@@ -199,7 +200,7 @@ def test_staged_weights_invert_to_views(name):
                                      + n_colour * tfm.KC * (H // 2))
 
 
-@pytest.mark.parametrize("hidden", [384, 512])
+@pytest.mark.parametrize("hidden", [384, 512, 640])
 def test_wide_staged_weights_invert_to_layers(hidden):
     """The wide path's stream: per matmul, per NCW-column chunk of its output,
     the chunk's 64 x NCW stages of each of its arrays in K order. Taking it
@@ -235,19 +236,25 @@ def test_wide_staged_weights_invert_to_layers(hidden):
     assert torch.equal(st[n, (k // 8) ^ (n % 8), k % 8], packed.views["w0"][:kc, :nc].T)
 
 
-def test_kernel_shape_check_names_hidden_widths():
-    """The kernels take 128, 256 (accumulator in registers), 384 and 512
-    (the wide path); above 512 the message gives the shared-memory
-    arithmetic."""
-    tfm.check_kernel_shape(TCFG)
-    tfm.check_kernel_shape(STAGE_CFGS["3x128"])
-    for hidden in (384, 512):
-        tfm.check_kernel_shape(tmlp.NeRFConfig(63, 27, n_layers=8,
-                                               hidden_dim=hidden, skip_pos=4))
-    wide = tmlp.NeRFConfig(63, 27, n_layers=8, hidden_dim=640, skip_pos=4)
-    assert tfm.fusable(wide)
-    with pytest.raises(ValueError, match="640.*160 registers.*shared memory.*160 KiB"):
-        tfm.check_kernel_shape(wide)
+@pytest.mark.parametrize("shape", [
+    (8, 256, 4), (3, 128, 1), (8, 384, 4), (8, 512, 4), (8, 640, 4),
+    (8, 1024, 4), (3, 1152, 2), (8, 192, 4), (8, 256, 0), (8, 256, 8),
+    (2, 256, 1)])
+def test_kernel_shape_check_names_hidden_widths(shape):
+    """The kernels take exactly the MLPs JAX's ``fusable`` takes: every
+    multiple of 128 (128 / 256 in registers, 384 / 512 the wide path, wider
+    the large route), a skip layer inside the trunk, at least three layers.
+    Elsewhere the check raises and names the rule."""
+    n_layers, hidden, skip = shape
+    cfg = tmlp.NeRFConfig(63, 27, n_layers=n_layers, hidden_dim=hidden,
+                          skip_pos=skip)
+    if jfm.fusable(jmlp.NeRFConfig(*cfg[:5])):
+        tfm.check_kernel_shape(cfg)
+        assert tfm.is_large(cfg) == (hidden > 512)
+    else:
+        with pytest.raises(ValueError, match="fusable.*multiple of 128.*"
+                           "skip_pos.*n_layers >= 3"):
+            tfm.check_kernel_shape(cfg)
 
 
 def test_wgmma_header_matches_its_generator():

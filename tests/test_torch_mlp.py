@@ -269,3 +269,39 @@ def test_ipe_checkpoint_renders_in_the_port(tmp_path):
     for key, tol in (("rgb", 1e-4), ("acc", 1e-4), ("depth", 1e-3)):
         np.testing.assert_allclose(got[key], want[key], atol=tol, err_msg=key)
     assert got["rgb"].std() > 1e-2
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_forward_sigma_noise_matches_jax(dtype):
+    """Train-time sigma noise: JAX draws ``normal(noise_key, (B·N,))`` and
+    adds ``noise·raw_noise_std`` to the pre-activation sigma; the same draws
+    given as ``noise=`` give the same composite and weights (JAX's
+    tolerances of the noise-free forward test: fp32 1e-5, bf16 2e-2), and
+    differ from the noise-free pass."""
+    jdt, tkw = FORWARD_MODES[dtype]
+    rng = np.random.RandomState(5)
+    B, N = 16, 24
+    ro = rng.uniform(-0.5, 0.5, (B, 3)).astype(np.float32)
+    rd = rng.normal(size=(B, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    z = np.sort(rng.uniform(2, 6, (B, N)), axis=-1).astype(np.float32)
+    params = jmlp.init_nerf_params(jax.random.PRNGKey(3), JCFG)
+    m = tmlp.NeRFMLP(TCFG, device="cpu")
+    m.load_state_dict(tmlp.params_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+    pos_b, dir_b = vanilla_encoders()
+    key = jax.random.PRNGKey(11)
+    kw = dict(white_bkgd=True, sigma_activation="relu", infinite_last_bin=True)
+    want = jfwd(params, JCFG, jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(z),
+                pos_bands=jnp.asarray(pos_b), dir_bands=jnp.asarray(dir_b),
+                compute_dtype=jdt, raw_noise_std=1.0, noise_key=key, **kw)
+    noise = torch.from_numpy(np.array(jax.random.normal(key, (B * N,))))
+    with torch.no_grad():
+        got = tfwd(m, *map(torch.from_numpy, (ro, rd, z)), pos_bands=pos_b,
+                   dir_bands=dir_b, raw_noise_std=1.0, noise=noise.reshape(B, N),
+                   device="cpu", **tkw, **kw)
+        clean = tfwd(m, *map(torch.from_numpy, (ro, rd, z)), pos_bands=pos_b,
+                     dir_bands=dir_b, device="cpu", **tkw, **kw)
+    tol = 1e-5 if dtype == "fp32" else 2e-2
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=tol)
+    assert float((got[1] - clean[1]).abs().max()) > 1e-3

@@ -136,6 +136,46 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert np.isfinite(out["rgb"]).all()
 
 
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    """The scene, the sampler and the train step run on CUDA unless asked
+    for the CPU, and raise without a CUDA device; asked for the CPU they take
+    a step there."""
+    from nerf_sandbox_tpu_torch.core.encoding import vanilla_encoders
+    from nerf_sandbox_tpu_torch.data.sampler import (
+        RayBatchSpec, SceneArrays, sample_ray_batch)
+    from nerf_sandbox_tpu_torch.data.scene import Frame, Scene
+    from nerf_sandbox_tpu_torch.models.mlp import NeRFConfig
+    from nerf_sandbox_tpu_torch.train.step import (
+        TrainHyper, build_train_step, init_train_state, make_optimizer)
+
+    K = np.array([[4.0, 0, 2], [0, 4.0, 2], [0, 0, 1]], np.float32)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = 4.0
+    scene = Scene([Frame(image=np.full((4, 4, 4), 200, np.uint8), K=K, c2w=c2w)])
+    spec = RayBatchSpec(8, 4, 4)
+    hyper = TrainHyper(model=NeRFConfig(63, 27, n_layers=3, hidden_dim=32, skip_pos=1),
+                       nc=4, nf=4, compute_dtype="float32")
+    tx = make_optimizer(5e-4, "none")
+    pos_b, dir_b = vanilla_encoders()
+    cpu_scene = SceneArrays.from_scene(scene, device="cpu")
+    cpu_state = init_train_state(hyper, tx, near=2.0, far=6.0, device="cpu")
+    calls = {
+        "SceneArrays.from_scene": lambda: SceneArrays.from_scene(scene),
+        "sample_ray_batch": lambda: sample_ray_batch(
+            1, cpu_scene, spec, generator=torch.Generator()),
+        "init_train_state": lambda: init_train_state(hyper, tx, near=2.0, far=6.0),
+        "build_train_step": lambda: build_train_step(hyper, spec, tx, pos_b, dir_b),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    step = build_train_step(hyper, spec, tx, pos_b, dir_b, device="cpu")
+    state, metrics = step(cpu_state, cpu_scene)
+    assert int(state.step) == 1 and bool(metrics["finite"])
+    assert all(t.device.type == "cpu" for t in state.opt_state["mu"].values())
+
+
 def test_chip_smoke_refuses_without_cuda():
     """``chip_smoke.py`` has no CPU path: without a card it prints nothing on
     stdout and exits non-zero."""
