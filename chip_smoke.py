@@ -79,8 +79,10 @@ Phases (any failure exits non-zero):
    seeded weights and one 8x1024 Blender fine tile (phase 4's) on the
    frequency route, against their plain versions (phase 3's and phase 4's
    tolerances; depth held as Σw·z at 2e-2 x far, since the seeded model
-   leaves rays nearly transparent), timed with their bounds; then, counted,
-   the 8x1024 model
+   leaves rays nearly transparent), timed with their bounds, each with the
+   bytes its weight stream and its activation scratch move and the rates
+   they imply (``fetch_line``, ``scratch_bytes``), K1 beside the bf16
+   cuBLAS chain at each width; then, counted, the 8x1024 model
    through ``render_rays_chunked`` on that tile's 16384 rays (two K2
    launches, both on the large route) and each width's
    ``nerf_forward_pass(use_kernel=True)`` through K1;
@@ -216,15 +218,36 @@ def mlp_passes(B, N):
     return -(-B // fr.RAYS_PER_GROUP) * -(-N // fr.SAMPLES_PER_PASS)
 
 
+def scratch_bytes(cfg, passes):
+    """The large route's activation traffic in ``passes`` MLP passes of
+    ``TILE_M`` rows: each consumer warpgroup's 64 x H bf16 input is read
+    from its scratch once per output chunk (``large_chunks``) by every layer
+    after the first and the feature layer (H wide) and by the colour head
+    (H / 2 wide), and each of the n_layers + 1 trunk outputs is written once.
+    → (bytes read, bytes written)."""
+    from nerf_sandbox_tpu_torch.ops import fused_mlp as fm
+    H = cfg.hidden_dim
+    per_read = passes * fm.TILE_M * H * 2
+    chunks = cfg.n_layers * len(fm.large_chunks(H)) + len(fm.large_chunks(H // 2))
+    return per_read * chunks, per_read * (cfg.n_layers + 1)
+
+
 def fetch_line(tag, ms, bound_ms, passes, packed, card):
     """Rows per weight fetch, the weight bytes a call pulls from L2 (the
-    staged stream once per pass) and the rate that implies, the share of the
-    bound."""
+    staged stream once per pass) and the rate that implies; on the large
+    route also the activation bytes read from (and written to) its scratch
+    and the rate of both reads; the share of the bound."""
     from nerf_sandbox_tpu_torch.ops import fused_mlp as fm
     nbytes = passes * packed.staged.numel() * 2
+    act = ""
+    if fm.is_large(packed.cfg):
+        rd, wr = scratch_bytes(packed.cfg, passes)
+        act = (f"{rd / 1e9:.3f} GB of activations read from scratch ({wr / 1e9:.3f} "
+               f"GB written): weights and activations {(nbytes + rd) / 1e9:.3f} GB "
+               f"read = {(nbytes + rd) / ms / 1e9:.3f} TB/s; ")
     print(f"[{tag}] {fm.TILE_M} rows per weight fetch, {passes} fetches of "
           f"{packed.staged.numel() * 2 / 1e6:.3f} MB: {nbytes / 1e9:.3f} GB of "
-          f"weights from L2 in {ms:.3f} ms = {nbytes / ms / 1e9:.3f} TB/s; "
+          f"weights from L2 in {ms:.3f} ms = {nbytes / ms / 1e9:.3f} TB/s; {act}"
           f"{100.0 * bound_ms / ms:.1f}% of the {bound_ms:.3f} ms bound | {card}",
           flush=True)
 
@@ -1101,6 +1124,14 @@ def k1_widths(torch, dev, card, widths, kernels, route, reps=10):
               f"{2.0 * mlp_macs_per_row(cfg) / 1e6:.3f} MFLOP a row; "
               f"{100.0 * b_ms / ms:.1f}% of the bound) | {card}", flush=True)
         fetch_line(f"K1 8x{H} {route}", ms, b_ms, -(-Q // fm.TILE_M), pk, card)
+        if fm.is_large(cfg):
+            ep_pad, ed_pad = fm.pad_cols_bf16(ep, 64), fm.pad_cols_bf16(ed, 32)
+            chain_ms = cuda_ms(torch, lambda: mlp_chain_bf16(torch, pk, ep_pad, ed_pad),
+                               reps=reps)
+            print(f"[K1 8x{H} {route}] yardstick, not used by the port: the bf16 "
+                  f"cuBLAS chain (phase 3's) {chain_ms:.3f} ms at Q={Q}; K1 {ms:.3f} ms "
+                  f"= {chain_ms / ms:.2f}x the chain's speed | {card}", flush=True)
+            del ep_pad, ed_pad
         kernels[f"fused_mlp_h{H}"] = dict(
             name=f"fused_mlp_h{H}", route="cuda",
             source="nerf_sandbox_tpu_torch/csrc/fused_mlp.cu",

@@ -1,17 +1,22 @@
 """Time two builds of K1, K2 and K3's encode-only entry in turns, on one card.
 
-    python -m nerf_sandbox_tpu_torch.compare_builds --old-csrc DIR [--hidden 128,256,384,512] [--out FILE]
+    python -m nerf_sandbox_tpu_torch.compare_builds --old-csrc DIR [--hidden 128,256,384,512,640,1024] [--out FILE]
 
 ``DIR`` holds an earlier ``csrc/`` (``fused_mlp.cu``, ``fused_raymarch.cu``,
 ``kplanes_encode.cu`` and the headers they include) whose C entry points are
-the current ones: the wgmma tile, with the staged weight stream. The script
-builds it with the package's nvcc flags, one compiler each, into
-``build/compare_old/``, builds the current sources as the package does, and
-times, in the order old, new, new, old (each a median of 10 CUDA-event runs
-after warm-up): K1 at 2^20 rows and K2 on the Blender fine (16384 x 192)
-eval tile of ``chip_smoke.py`` (frame 1's mid-frame tile) at each width of
-``--hidden`` (8 layers, skip 4; the reference weights at 256, seeded ones at
-the others), K2 on the coarse (16384 x 64) tile at 256, and K3's
+the current ones: the wgmma tile, with the staged weight stream, and for
+hidden widths above 512 the large route's entries with their scratch. Each
+build reads the weight stream of its own tree: ``DIR/../ops/fused_mlp.py``'s
+``stage_weights``, imported by path, stages the old build's weights. The
+script builds ``DIR`` with the package's nvcc flags (one compiler per
+source, per part for the sources the package builds in parts, all at once)
+into ``build/compare_old/``, builds the current sources as the package
+does, and times, in the order old, new, new, old (each a median of 10
+CUDA-event runs after warm-up): K1 at 2^20 rows and K2 on the Blender fine
+(16384 x 192) eval tile of ``chip_smoke.py`` (frame 1's mid-frame tile) at
+each width of ``--hidden`` (8 layers, skip 4; the reference weights at 256,
+seeded ones at the others), K2 on the coarse (16384 x 64) tile at 256 and
+at each width above 512, and K3's
 encode-only entry on the contracted
 points of a 360 tile (16384 rays of frame 1's middle x 192 lindisp samples,
 the full-width planes of ``chip_smoke.kp_configs``). Both builds are called
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import os
 import subprocess
@@ -42,24 +48,46 @@ ROOT = Path(__file__).resolve().parents[1]
 def build_variant(csrc: Path, tag: str,
                   names=("fused_mlp", "fused_raymarch", "kplanes_encode")) -> dict:
     """nvcc each named source of csrc into build/<tag>/ with the package's
-    flags, in parallel. → {name: loaded library}."""
+    flags, in parallel, a source of ``cuda_build.PARTS`` one compiler per
+    part, then linked. → {name: loaded library}."""
     from nerf_sandbox_tpu_torch.ops import cuda_build
     out_dir = ROOT / "build" / tag
     out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = cuda_build._nvcc()
+    objects = [f for f in cuda_build.NVCC_FLAGS if f != "-shared"] + ["-c"]
     procs = {}
     for name in names:
-        lib = out_dir / f"lib{name}.so"
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
-               str(csrc / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), lib)
+        lib, src = out_dir / f"lib{name}.so", str(csrc / f"{name}.cu")
+        objs = [out_dir / f"{name}.{p}.o" for p in range(cuda_build.PARTS.get(name, 0))]
+        cmds = ([[nvcc, *objects, f"-DNERF_PART={p}", "-o", str(o), src]
+                 for p, o in enumerate(objs)]
+                or [[nvcc, *cuda_build.NVCC_FLAGS, "-o", str(lib), src]])
+        procs[name] = ([subprocess.Popen(c, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True)
+                        for c in cmds], objs, lib)
     libs = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"{csrc / name}.cu failed to build:\n{log}")
+    for name, (ps, objs, lib) in procs.items():
+        logs = [p.communicate()[0] for p in ps]
+        if any(p.returncode for p in ps):
+            raise RuntimeError(f"{csrc / name}.cu failed to build:\n{''.join(logs)}")
+        if objs:
+            link = subprocess.run([nvcc, "-shared", "-o", str(lib), *map(str, objs)],
+                                  capture_output=True, text=True)
+            if link.returncode:
+                raise RuntimeError(f"{csrc / name}.cu failed to link:\n{link.stderr}")
         libs[name] = ctypes.CDLL(str(lib))
     return libs
+
+
+def stage_weights_of(csrc: Path):
+    """``stage_weights`` of the tree whose kernels are in csrc (its
+    ``ops/fused_mlp.py``, imported by path), so that a build reads the
+    weight stream its own kernels expect."""
+    spec = importlib.util.spec_from_file_location(
+        "compare_old_fused_mlp", csrc.parent / "ops" / "fused_mlp.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.stage_weights
 
 
 def _ptr(t):
@@ -106,13 +134,22 @@ def main(argv=None) -> int:
     model_c = NeRFMLP(cfg, generator=torch.Generator().manual_seed(0), device=dev)
     ep_pad, ed_pad = fm._enc_pads(cfg)
     widths = [int(h) for h in args.hidden.split(",")]
-    packs = {}
+    packs, staged, scratch = {}, {}, {}
+    old_stage = stage_weights_of(args.old_csrc)
     for H in widths:
         m = model_f if H == 256 else NeRFMLP(
             NeRFConfig(63, 27, 8, H, 4), generator=torch.Generator().manual_seed(H),
             device=dev)
-        packs[H] = fm.pack_nerf_params(m)
+        packs[H] = pk = fm.pack_nerf_params(m)
+        staged["new", H] = pk.staged
+        staged["old", H] = old_stage(pk.cfg, pk.views).contiguous()
+        if fm.is_large(pk.cfg):
+            scratch[H] = fm.large_scratch(pk.cfg, dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def large_args(H):
+        """The large route's scratch arguments, or none below 513."""
+        return [_ptr(scratch[H][0]), scratch[H][1]] if H in scratch else []
 
     # K1 inputs, as chip_smoke's phase 3 at 2^20 rows
     rng = np.random.RandomState(0)
@@ -124,16 +161,24 @@ def main(argv=None) -> int:
     k1_out = {(k, H): torch.empty((Q, 4), dtype=torch.float32, device=dev)
               for k in ("old", "new") for H in widths}
     libs = {"old": old, "new": {n: cuda_build.load(n) for n in old}}
-    f = {w: libs[w]["fused_mlp"].nerf_fused_mlp for w in libs}
-    for fn in f.values():
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p] * 2)
+    routes = sorted({H in scratch for H in widths})   # the entries these widths use
+    f = {}
+    for w in libs:
+        for large in routes:
+            fn = getattr(libs[w]["fused_mlp"],
+                         "nerf_fused_mlp_large" if large else "nerf_fused_mlp")
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+                           + [ctypes.c_void_p] + [ctypes.c_int] * 8
+                           + ([ctypes.c_void_p, ctypes.c_int] if large else [])
+                           + [ctypes.c_void_p] * 2)
+            f[w, large] = fn
+
     def k1(which, H):
         pk = packs[H]
-        err = f[which](_ptr(ep), _ptr(ed), _ptr(pk.flat), fm.offsets_arg(pk),
-                       _ptr(pk.staged), Q, 63, 27, H, ep_pad, ed_pad, 8, 4,
-                       _ptr(k1_out[which, H]), stream)
+        err = f[which, H in scratch](
+            _ptr(ep), _ptr(ed), _ptr(pk.flat), fm.offsets_arg(pk),
+            _ptr(staged[which, H]), Q, 63, 27, H, ep_pad, ed_pad, 8, 4,
+            *large_args(H), _ptr(k1_out[which, H]), stream)
         if err:
             raise RuntimeError(f"{which} K1 launch: CUDA error {err}")
 
@@ -156,16 +201,23 @@ def main(argv=None) -> int:
     zc = zc.contiguous()
     bands = np.asarray(pos_bands, np.float32).reshape(-1)
     c_bands = (ctypes.c_float * bands.size)(*bands.tolist())
-    g = {w: libs[w]["fused_raymarch"].nerf_fused_raymarch for w in libs}
+    g = {}
     tail = [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    for fn in g.values():
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
-                       + [ctypes.POINTER(ctypes.c_float)] + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
-                          ctypes.c_void_p] + tail + ke.KP_C_ARGTYPES
-                       + [ctypes.c_void_p] * 3)
+    for w in libs:
+        for large in routes:
+            fn = getattr(libs[w]["fused_raymarch"],
+                         "nerf_fused_raymarch_large" if large else "nerf_fused_raymarch")
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                           + [ctypes.POINTER(ctypes.c_float)] + [ctypes.c_int] * 2
+                           + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
+                              ctypes.c_void_p] + tail + ke.KP_C_ARGTYPES
+                           + ([ctypes.c_void_p, ctypes.c_int] if large else [])
+                           + [ctypes.c_void_p] * 3)
+            g[w, large] = fn
+    coarse = [H for H in widths if H == 256 or H in scratch]
     tiles = {}
-    for name, z, H in [("fine", zf, H) for H in widths] + [("coarse", zc, 256)]:
+    for name, z, H in ([("fine", zf, H) for H in widths]
+                       + [("coarse", zc, H) for H in coarse]):
         B, N = z.shape
         outs = {k: (torch.empty((B, 5), dtype=torch.float32, device=dev),
                     torch.empty((B, N), dtype=torch.float32, device=dev))
@@ -178,10 +230,10 @@ def main(argv=None) -> int:
         pk = packs[H]
         rest = [B, N, 27, H, ep_pad, ed_pad, 8, 4,
                 0, 1, 0, 0.0, 0, None, None, None, None, 0, 0, 0, 0, 0, 0.0, None, 0,
-                _ptr(outs[which][0]), _ptr(outs[which][1]), stream]
+                *large_args(H), _ptr(outs[which][0]), _ptr(outs[which][1]), stream]
         rays = [_ptr(ro), _ptr(rd), _ptr(rn), _ptr(enc_dir), _ptr(z)]
         weights = [c_bands, bands.size, 1, _ptr(pk.flat), fm.offsets_arg(pk)]
-        err = g[which](*rays, 1, *weights, _ptr(pk.staged), *rest)
+        err = g[which, H in scratch](*rays, 1, *weights, _ptr(staged[which, H]), *rest)
         if err:
             raise RuntimeError(f"{which} K2 launch: CUDA error {err}")
 
@@ -215,8 +267,8 @@ def main(argv=None) -> int:
     runs = [(f"K1 2^20 rows H={H}", lambda w, H=H: k1(w, H)) for H in widths]
     runs += [(f"K2 fine 16384x192 H={H}", lambda w, H=H: k2(w, "fine", H))
              for H in widths]
-    if 256 in widths:
-        runs.append(("K2 coarse 16384x64 H=256", lambda w: k2(w, "coarse", 256)))
+    runs += [(f"K2 coarse 16384x64 H={H}", lambda w, H=H: k2(w, "coarse", H))
+             for H in coarse]
     runs.append((f"K3 encode-only {pts.shape[0]} rows", k3))
     for label, fn in runs:
         times = []
@@ -234,10 +286,14 @@ def main(argv=None) -> int:
     d_k2 = {f"{n} H={H}": [float((o["old"][i] - o["new"][i]).abs().max()) for i in (0, 1)]
             for (n, H), (_, o) in tiles.items()}
     n_k3 = int((k3_out["old"] != k3_out["new"]).sum())
+    same = {f"K1 H={H}": torch.equal(k1_out["old", H], k1_out["new", H]) for H in widths}
+    same.update({f"K2 {n} H={H}": all(torch.equal(o["old"][i], o["new"][i]) for i in (0, 1))
+                 for (n, H), (_, o) in tiles.items()})
     print(f"[compare] old vs new outputs: K1 max|diff| by width {d_k1}; K2 (raw, w) "
-          f"max|diff| {d_k2}; K3 {n_k3} of {k3_out['new'].numel()} values differ",
-          flush=True)
+          f"max|diff| {d_k2}; K3 {n_k3} of {k3_out['new'].numel()} values differ; "
+          f"bit-identical: {same}", flush=True)
     result["max_diff"] = {"K1": d_k1, "K2": d_k2, "K3_values_differ": n_k3}
+    result["bit_identical"] = same
 
     # copies between two 16 MB buffers that stay in the 50 MB L2, timed from
     # a CUDA graph of 20 so that launch gaps do not count

@@ -44,13 +44,27 @@ fused_mlp_kernel(const bf16* __restrict__ enc_pos,
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * TILE_M + wg * WG_ROWS;
     wg_sync(wg);   // the last pass's reads of enc, ed and out are done
-    for (int i = t; i < WG_ROWS * P.EP; i += WG_THREADS) {
-      const int q = i / P.EP, c = i % P.EP, r = row0 + q;
-      enc[swz(q, c)] = (r < Q && c < P_dim) ? enc_pos[size_t(r) * P_dim + c] : zero;
-    }
-    for (int i = t; i < WG_ROWS * P.EDP; i += WG_THREADS) {
-      const int q = i / P.EDP, c = i % P.EDP, r = row0 + q;
-      ed[swz(q, c)] = (r < Q && c < D_dim) ? enc_dir[size_t(r) * D_dim + c] : zero;
+    if constexpr (H == 0) {
+      // the large route: the same copies, each thread's trip count written
+      // out (64 x EP / 128 is whole), so that no loop ptxas takes for
+      // divergent runs before the pass (it then serialized the pass's wgmmas)
+      for (int k = 0; k < WG_ROWS * P.EP / WG_THREADS; ++k) {
+        const int i = t + k * WG_THREADS, q = i / P.EP, c = i % P.EP, r = row0 + q;
+        enc[swz(q, c)] = (r < Q && c < P_dim) ? enc_pos[size_t(r) * P_dim + c] : zero;
+      }
+      for (int k = 0; k < WG_ROWS * P.EDP / WG_THREADS; ++k) {
+        const int i = t + k * WG_THREADS, q = i / P.EDP, c = i % P.EDP, r = row0 + q;
+        ed[swz(q, c)] = (r < Q && c < D_dim) ? enc_dir[size_t(r) * D_dim + c] : zero;
+      }
+    } else {
+      for (int i = t; i < WG_ROWS * P.EP; i += WG_THREADS) {
+        const int q = i / P.EP, c = i % P.EP, r = row0 + q;
+        enc[swz(q, c)] = (r < Q && c < P_dim) ? enc_pos[size_t(r) * P_dim + c] : zero;
+      }
+      for (int i = t; i < WG_ROWS * P.EDP; i += WG_THREADS) {
+        const int q = i / P.EDP, c = i % P.EDP, r = row0 + q;
+        ed[swz(q, c)] = (r < Q && c < D_dim) ? enc_dir[size_t(r) * D_dim + c] : zero;
+      }
     }
     fence_async_smem();
     wg_sync(wg);

@@ -75,17 +75,36 @@
 // warpgroups (2 x 128 KiB at H = 1024) nor a layer's held output (H / 4
 // registers a thread) fits, so each consumer warpgroup keeps its activations
 // in a ping-pong pair of 64 x H bf16 buffers in global memory (LargeMlpArgs::
-// scratch, allocated by the caller per persistent block; they stay mostly in
-// L2), in the swizzled layout of act, where a 64-column slice is 8 KiB
-// contiguous. Each layer runs in the wide path's 32-column output chunks on
-// the same weight stream; a chunk copies its A operand from the layer's input
-// buffer, one 64 x 64 slice at a time, into one of two shared slots (the
-// next slice's loads are in flight while the current slice's wgmmas run), then
-// fence_async_smem and the warpgroup's barrier before the wgmmas read it.
-// The chunk's epilogue goes to the other buffer; sigma and the colour head
-// are reduced from the epilogue's registers as the wide path does. Biases and
-// head vectors are read from global memory, so shared memory does not grow
-// with H. No speed aim: every chunk reads the whole 64 x H input from L2.
+// scratch, allocated by the caller per persistent block), in the swizzled
+// layout of act, where a 64-column slice is 8 KiB contiguous. A layer runs
+// in output chunks of up to LNC = 256 columns (then 128, then 64:
+// large_chunk; 640 = 256 + 256 + 128), each a 64 x 256 fp32 accumulator (128
+// registers, the register path's) fed by m64n256k16 wgmmas, so the input is
+// read H / 256 times a layer where 32-column chunks read it H / 32 times.
+// The A operand comes through a ring of NA = 3 shared slots per warpgroup
+// (ARing): lane 0 of the warpgroup issues one cp.async.bulk per 8 KiB slice,
+// completed on the slot's mbarrier, up to NA slices ahead and across the
+// chunks of a layer, and each warp releases a slot once its wgmmas have
+// read it, as the weight stages are released. The chunk's epilogue (bias,
+// relu, bf16) goes straight from the accumulator to the other buffer with
+// st.global; at the end of a layer every thread runs fence.proxy.async.global
+// and the warpgroup's barrier before the next layer's copies are issued, so
+// that the bulk copies (async proxy) see the stores. The weights stream in
+// stages of 64 K rows x the chunk's columns (32 KiB at 256; stage_weights'
+// large stream), which a separate overload of mlp_produce walks. The colour
+// head is the last step of the layer loop (its output goes to the buffer the
+// feature layer read), and sigma and rgb are row dots of stored activations,
+// read back after the layer's barrier, in the wide path's 32-column order,
+// so the outputs are those of 32-column chunks. The epilogue stores whole
+// 16-byte units (a quad transposes its pairs with shuffles first), four
+// times fewer stores than one 4-byte word per pair, which ran markedly
+// slower (probe_large_route.py). What ptxas needs to keep these wgmmas
+// asynchronous (chip_smoke.py phase 2 fails otherwise): one accumulator
+// array for every chunk width, its first product written only
+// (Wgmma::ss0), every wgmma of a pass in one loop, and no loop of
+// thread-dependent trip count before the pass (K1 stages its rows with trip
+// counts written out on this route). Biases and head vectors are read from
+// global memory, so shared memory does not grow with H.
 #pragma once
 
 #include "common.cuh"
@@ -111,6 +130,25 @@ constexpr int BAR_CONSUMERS = 3;                     // ids 1, 2: one per warpgr
 // layer, and the weight stage of one chunk.
 constexpr int NCW = 32;
 constexpr uint32_t WIDE_STAGE_BYTES = uint32_t(KC) * NCW * 2;
+
+// The large route (H > 512): the widest output chunk of a layer (a 64 x 256
+// fp32 accumulator, 128 registers), its weight stage (64 K rows x LNC
+// columns; a narrower chunk fills the front of one), the A slots of each
+// consumer warpgroup's ring, and the ring's mbarriers and pass count (the
+// warpgroup's share of the prm region, which this route does not use).
+constexpr int LNC = 256;
+constexpr uint32_t LARGE_STAGE_BYTES = uint32_t(KC) * LNC * 2;
+// 3 A slots leave room for 4 weight stages in K1 and the frequency K2, which
+// runs faster than 4 slots and 3 stages (probe_large_route.py)
+constexpr int NA = 3;
+constexpr int LARGE_RING_META = (2 * NA + 1) * 8;
+
+// The output columns of the large route's next chunk of a matmul that still
+// has `left` columns to produce: 256 while that many remain, then 128, then
+// 64 (H is a multiple of 128, the colour head's H / 2 of 64).
+__host__ __device__ inline int large_chunk(int left) {
+  return left >= LNC ? LNC : left >= 128 ? 128 : 64;
+}
 
 // Where a layer's activations live: registers (H = 128, 256), shared memory
 // (the wide path, 384, 512) or global scratch (the large route, above 512).
@@ -185,17 +223,19 @@ struct MlpLayout {
                                 size_t extra_bytes, int route) {
     const bool wide = route != ROUTE_REGS;
     size_t o = 0;
-    ring = o;   o += NS * size_t(stage_bytes(H, wide));
+    ring = o;
+    o += NS * size_t(route == ROUTE_LARGE ? LARGE_STAGE_BYTES : stage_bytes(H, wide));
     for (int w = 0; w < N_CONSUMERS; ++w) { enc[w] = o; o += (EP / KC) * A_CHUNK_BYTES; }
     for (int w = 0; w < N_CONSUMERS; ++w) { ed[w] = o; o += (EDP / KC) * A_CHUNK_BYTES; }
     for (int w = 0; w < N_CONSUMERS; ++w) { out[w] = o; o += WG_ROWS * 4 * sizeof(float); }
     for (int w = 0; w < N_CONSUMERS; ++w) {   // wide: 64 x H activations
-      act[w] = o;                             // large: two 64 x 64 A slots
+      act[w] = o;                             // large: the A ring's NA slots
       if (route == ROUTE_WIDE) o += (H / KC) * A_CHUNK_BYTES;
-      if (route == ROUTE_LARGE) o += 2 * A_CHUNK_BYTES;
+      if (route == ROUTE_LARGE) o += NA * A_CHUNK_BYTES;
     }
-    prm = o;                                  // the large route reads global
+    prm = o;   // the large route reads global, and keeps its A rings' state here
     if (route != ROUTE_LARGE) o += ((prm_offsets(H, n_layers).total * 2 + 15) & ~size_t(15));
+    else o += N_CONSUMERS * LARGE_RING_META;
     bars = o;   o += (2 * MAX_STAGES + 2) * 8;
     extra = o;  o += extra_bytes;
     total = o + 1024;                       // room to align the base
@@ -212,6 +252,16 @@ struct MlpSmem {
   int* done;                                // set once the consumers are finished
   unsigned char* extra;
 };
+
+// The large route's A ring of warpgroup wg: its NA "full" then NA "empty"
+// mbarriers (shared-space address), and its count of slices so far.
+__device__ __forceinline__ uint32_t large_ring_bars(const MlpSmem& S, int wg) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(S.prm)) + wg * LARGE_RING_META;
+}
+__device__ __forceinline__ uint32_t* large_ring_count(const MlpSmem& S, int wg) {
+  return reinterpret_cast<uint32_t*>(
+      reinterpret_cast<uintptr_t>(S.prm) + wg * LARGE_RING_META + 2 * NA * 8);
+}
 
 // ---- PTX helpers ----
 
@@ -389,6 +439,13 @@ __device__ inline void mlp_setup(unsigned char* raw, const MlpArgs& P) {
         mbar_init(S.bars + 8 * s, 1);                                // full
         mbar_init(S.bars + 8 * (MAX_STAGES + s), N_CONSUMER_THREADS / 32);  // empty
       }
+      for (int w = 0; w < N_CONSUMERS; ++w) {   // the A rings
+        for (int s = 0; s < NA; ++s) {
+          mbar_init(large_ring_bars(S, w) + 8 * s, 1);
+          mbar_init(large_ring_bars(S, w) + 8 * (NA + s), WG_THREADS / 32);
+        }
+        *large_ring_count(S, w) = 0;
+      }
       *S.done = 0;
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
@@ -441,7 +498,7 @@ __host__ __device__ inline int wide_stream_chunks(int H, int EP, int EDP, int n_
 // consumers are done; the other threads leave.
 template <int ROUTE>
 __device__ inline void mlp_produce(unsigned char* raw, const MlpArgs& P) {
-  constexpr bool WIDE = ROUTE != ROUTE_REGS;   // the large route streams as the wide
+  constexpr bool WIDE = ROUTE != ROUTE_REGS;   // the large route: the overload below
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
   if (threadIdx.x != N_CONSUMER_THREADS) return;
   const MlpSmem S = mlp_carve<ROUTE>(raw, P);
@@ -473,6 +530,52 @@ __device__ inline void mlp_produce(unsigned char* raw, const MlpArgs& P) {
   }
 }
 
+// The large route's producer: the same ring, in stages of 64 K rows x the
+// output chunk's columns (stage_weights' large stream: per matmul, per
+// chunk of large_chunk widths, the K / 64 stages of its arrays), each slot
+// LARGE_STAGE_BYTES apart. Matmul m is layer 0 (K = EP), the trunk's layers
+// (H, or H + EP at the skip), the feature layer (H) and, at m = last, the
+// colour head (K = H + EDP, H / 2 columns). The overload for the large
+// route's arguments; the kernels call mlp_produce<R>(smem, P) for all.
+template <int ROUTE>
+__device__ inline void mlp_produce(unsigned char* raw, const LargeMlpArgs& P) {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+  if (threadIdx.x != N_CONSUMER_THREADS) return;
+  const MlpSmem S = mlp_carve<ROUTE_LARGE>(raw, P);
+  const char* src = reinterpret_cast<const char*>(P.staged);
+  volatile int* done = S.done;
+  const int last = P.n_layers + 1;
+  int m = 0, n = 0, k = 0, s = 0;
+  uint32_t off = 0, ph = 0;
+  for (;;) {
+    const uint32_t empty = S.bars + 8 * (MAX_STAGES + s);
+    if (!mbar_try_wait(empty, ph ^ 1)) {
+      const long long t0 = clock64();
+      while (!mbar_try_wait(empty, ph ^ 1)) {
+        if (*done) return;
+        if (clock64() - t0 > WAIT_LIMIT_CYCLES) __trap();
+      }
+    }
+    const int N = m == last ? P.H / 2 : P.H;
+    const int K = m == 0 ? P.EP : m == last ? P.H + P.EDP
+                : m == P.skip_pos ? P.H + P.EP : P.H;
+    const int nc = large_chunk(N - n);
+    const uint32_t bytes = uint32_t(nc) * (KC * 2);
+    const uint32_t full = S.bars + 8 * s;
+    mbar_expect_tx(full, bytes);
+    bulk_load(S.ring + s * LARGE_STAGE_BYTES, src + off, bytes, full);
+    off += bytes;
+    if ((k += KC) == K) {
+      k = 0;
+      if ((n += nc) == N) {
+        n = 0;
+        if (++m > last) { m = 0; off = 0; }
+      }
+    }
+    if (++s == P.NS) { s = 0; ph ^= 1; }
+  }
+}
+
 // The thread's warpgroup, warp-uniform as far as the compiler can tell.
 __device__ __forceinline__ int warpgroup() {
   return __shfl_sync(0xffffffffu, threadIdx.x / WG_THREADS, 0);
@@ -490,6 +593,9 @@ struct Pipe {
   __device__ Pipe(const MlpSmem& S, const MlpArgs& P, bool wide)
       : ring(S.ring), bars(S.bars), sbytes(stage_bytes(P.H, wide)), NS(P.NS),
         s(0), ph(0) {}
+  // the large route's (its stages are LARGE_STAGE_BYTES apart)
+  __device__ Pipe(const MlpSmem& S, const LargeMlpArgs& P, bool)
+      : ring(S.ring), bars(S.bars), sbytes(LARGE_STAGE_BYTES), NS(P.NS), s(0), ph(0) {}
   // Wait for the next stage; → its shared address (stage index in st).
   __device__ __forceinline__ uint32_t acquire(int& st) {
     mbar_wait(bars + 8 * s, ph);
@@ -842,179 +948,307 @@ __device__ __forceinline__ void mlp_pass_wide(const MlpArgs& P, const MlpSmem& S
 
 // ---- the large route: one warpgroup's 64 rows at any H > 512 ----
 
-// The calling thread's four 16-byte units of the 8 KiB slice at g (global).
-// .cg: from L2, where the warpgroup's own stores of the last layer are.
-__device__ __forceinline__ void load_slice(uint4 (&v)[4], const bf16* g) {
-  const uint4* src = reinterpret_cast<const uint4*>(g) + threadIdx.x % WG_THREADS;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = __ldcg(src + WG_THREADS * i);
+// The global stores of a layer's output, ordered before the bulk copies
+// (async proxy) that read them as the next layer's input.
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
-// ... into the shared slot at slot, in the same order (the slice is already
-// in the swizzled layout).
-__device__ __forceinline__ void store_slice(uint32_t slot, const uint4 (&v)[4]) {
-  const uint32_t a = slot + 16 * (threadIdx.x % WG_THREADS);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
-                 :: "r"(a + 16 * WG_THREADS * i), "r"(v[i].x), "r"(v[i].y),
-                    "r"(v[i].z), "r"(v[i].w) : "memory");
-}
+// The A operand's ring of one consumer warpgroup: NA slots of 8 KiB, each a
+// 64 x 64 slice of the layer's input (64 x H in global scratch, slice k at
+// element k * 64 * 64, already in wgmma's swizzled layout), brought in by
+// one cp.async.bulk completed on the slot's "full" mbarrier; each warp
+// arrives on the slot's "empty" mbarrier once its wgmmas have read it. A
+// layer takes its input's kh slices once per output chunk, in order, and
+// lane 0 of the warpgroup issues them up to NA ahead, across the chunks of
+// the layer. Every thread runs the same code (the wait on "empty" too), so
+// that no branch sits between the wgmmas. The counts run on from pass to
+// pass (mlp_pass_large keeps them in shared memory): slot n % NA, phase
+// (n / NA) % 2.
+struct ARing {
+  uint32_t slots, bars;            // bars: NA "full", then NA "empty"
+  uint32_t issued, taken, freed;   // slices issued, waited for, released
+  const bf16* src;                 // the current layer's input
+  int kh, k, left;                 // its slices, the next to issue, still to issue
 
-// mma_wide_chunk with A0 in global memory: acc (64 x NCW) = A0 (64 x 64 n0,
-// global at g0, 8 KiB a slice) @ W + A1 (64 x 64 n1, shared at a1) @ W'. The
-// slices of A0 pass through the two A slots at slots (warp-uniform n0, n1;
-// n0 + n1 >= 1).
-__device__ __forceinline__ void mma_large_chunk(float* acc, const bf16* g0, int n0,
-                                                uint32_t a1, int n1, uint32_t slots,
-                                                int wg, Pipe& P) {
-  uint4 v[4];
-  if (n0 > 0) {
-    load_slice(v, g0);
-    wg_sync(wg);   // every warp's last wgmmas on the slots are done
-    store_slice(slots, v);
-    fence_async_smem();
-    wg_sync(wg);
+  __device__ __forceinline__ void issue() {
+    const uint32_t s = issued % NA;
+    mbar_wait(bars + 8 * (NA + s), ((issued / NA) & 1) ^ 1);
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.eq.u32 p, %4, 0;\n"
+        "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %3;\n"
+        "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%1], [%2], %3, [%0];\n}\n"
+        :: "r"(bars + 8 * s), "r"(slots + s * A_CHUNK_BYTES),
+           "l"(src + size_t(k) * (WG_ROWS * KC)), "r"(uint32_t(A_CHUNK_BYTES)),
+           "r"(threadIdx.x % WG_THREADS) : "memory");
+    ++issued;
+    --left;
+    if (++k == kh) k = 0;
   }
+  // Issue while slices remain and a slot is (or is about to be) free.
+  __device__ __forceinline__ void refill() {
+    while (left > 0 && issued - freed < uint32_t(NA)) issue();
+  }
+  // Start a layer whose input is `in` (kh slices), read by n_chunks output
+  // chunks; called after the last layer's fence_async_global and wg_sync.
+  __device__ __forceinline__ void begin(const bf16* in, int kh_, int n_chunks) {
+    src = in;
+    kh = kh_;
+    k = 0;
+    left = kh_ * n_chunks;
+    refill();
+  }
+  // Wait for the next slice; → its shared address.
+  __device__ __forceinline__ uint32_t take() {
+    const uint32_t s = taken % NA;
+    mbar_wait(bars + 8 * s, (taken / NA) & 1);
+    ++taken;
+    return slots + s * A_CHUNK_BYTES;
+  }
+  // After this warp's wgmmas on the oldest slice taken have completed: lane
+  // 0 arrives (predicated, as Pipe::release); then refill its slot.
+  __device__ __forceinline__ void release() {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.eq.u32 p, %1, 0;\n"
+        "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+        :: "r"(bars + 8 * (NA + freed % NA)), "r"(threadIdx.x & 31) : "memory");
+    ++freed;
+    refill();
+  }
+};
+
+// acc (64 x N) = A0 (64 x 64 n0, the ring's next n0 slices) @ W + A1 (64 x
+// 64 n1, shared at a1) @ W', the n0 + n1 weight stages of one output chunk
+// taken from the ring in order (warp-uniform n0, n1; n0 + n1 >= 1). One loop
+// over the K slices, its first k16 step peeled (ss0: acc written, not read),
+// so that no value flows into acc from an earlier chunk.
+template <int N>
+__device__ __forceinline__ void mma_large_chunk(float* acc, ARing& A, int n0, uint32_t a1,
+                                                int n1, Pipe& P) {
   wgmma_fence();
-  int prev = -1, scale = 0;
-  for (int c = 0; c < n0; ++c) {
-    int st;
+  int st, prev;
+  {
     const uint64_t db = sdesc(P.acquire(st));
-    if (c + 1 < n0) load_slice(v, g0 + (c + 1) * (WG_ROWS * KC));
-    const uint64_t da = sdesc(slots + (c & 1) * A_CHUNK_BYTES);
+    const uint64_t da = sdesc(n0 > 0 ? A.take() : a1);
+    Wgmma<N>::ss0(acc, da, db);
 #pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      Wgmma<NCW>::ss(acc, da + 2 * kk, db + 2 * kk, scale);
-      scale = 1;
-    }
+    for (int kk = 1; kk < KC / 16; ++kk) Wgmma<N>::ss(acc, da + 2 * kk, db + 2 * kk, 1);
     wgmma_commit();
-    if (c > 0) {
-      wgmma_wait<1>();
-      P.release(prev);
-    }
     prev = st;
-    if (c + 1 < n0) {
-      wg_sync(wg);   // every warp has waited out slice c - 1, the other slot's
-      store_slice(slots + ((c + 1) & 1) * A_CHUNK_BYTES, v);
-      fence_async_smem();
-      wg_sync(wg);
-    }
   }
-  for (int c = 0; c < n1; ++c) {
-    int st;
+  for (int c = 1; c < n0 + n1; ++c) {
     const uint64_t db = sdesc(P.acquire(st));
-    const uint64_t da = sdesc(a1 + c * A_CHUNK_BYTES);
+    const uint64_t da = sdesc(c < n0 ? A.take() : a1 + (c - n0) * A_CHUNK_BYTES);
 #pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      Wgmma<NCW>::ss(acc, da + 2 * kk, db + 2 * kk, scale);
-      scale = 1;
-    }
+    for (int kk = 0; kk < KC / 16; ++kk) Wgmma<N>::ss(acc, da + 2 * kk, db + 2 * kk, 1);
     wgmma_commit();
-    if (n0 > 0 || c > 0) {
-      wgmma_wait<1>();
-      P.release(prev);
-    }
+    wgmma_wait<1>();
+    P.release(prev);
+    if (c - 1 < n0) A.release();
     prev = st;
   }
   wgmma_wait<0>();
   P.release(prev);
-  fence_regs<NCW / 2>(acc);
+  if (n1 == 0) A.release();   // the last slice came from the A ring
+  fence_regs<N / 2>(acc);
 }
 
-// Chunk c of a layer's output (the epilogue's registers) into the 64 x H
-// buffer g (global, swizzled as act; wide_store's addressing).
-__device__ __forceinline__ void store_chunk_global(bf16* g, const uint32_t (&hc)[NCW / 4],
-                                                   int c) {
+// Rows r, r + 8 and columns 8j + 2q, +1 of an accumulator (the epilogue's
+// layout) → bf16(act(acc + bias)) as two packed pairs.
+__device__ __forceinline__ void large_pack(const float* acc, const bf16* bias, int j,
+                                           bool relu, uint32_t& u0, uint32_t& u1) {
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(bias + 8 * j + 2 * (threadIdx.x & 3)));
+  const float y0 = acc[4 * j] + b.x, y1 = acc[4 * j + 1] + b.y;
+  const float y2 = acc[4 * j + 2] + b.x, y3 = acc[4 * j + 3] + b.y;
+  u0 = relu ? pack_bf16_relu(y0, y1) : pack_bf16(y0, y1);
+  u1 = relu ? pack_bf16_relu(y2, y3) : pack_bf16(y2, y3);
+}
+
+// The four lanes of a quad each hold a[i], i < 4: lane p's word i. After
+// this, lane q holds lane p's word q in a[p] (a 4 x 4 transpose in two
+// exchanges of two words with the lane whose index differs in bit k).
+__device__ __forceinline__ void quad_transpose(uint32_t (&a)[4]) {
+  const int q = threadIdx.x & 3;
+#pragma unroll
+  for (int k = 1; k <= 2; k <<= 1) {
+    const bool hi = q & k;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i & k) continue;
+      const uint32_t x = a[i], y = a[i | k];
+      const uint32_t got = __shfl_xor_sync(0xffffffffu, hi ? x : y, k);
+      a[i] = hi ? got : x;
+      a[i | k] = hi ? y : got;
+    }
+  }
+}
+
+// The epilogue of output chunk [n, n + N) (n a multiple of 64): bf16(act(acc
+// + bias)) into the 64-row buffer g (global, swizzled as act: 16-byte unit u
+// of row r's 64-column block at u ^ (r % 8)). Each lane packs its pairs of
+// four n8 groups, the quad transposes them, and each lane stores one whole
+// 16-byte unit of rows r and r + 8: a quarter of the stores of one word.
+template <int N>
+__device__ __forceinline__ void large_store(const float* acc, const bf16* bias, bool relu,
+                                            bf16* g, int n) {
+  const int lane = threadIdx.x & 31;
+  const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  bf16* row = g + (n / KC) * (WG_ROWS * KC) + r * KC;
+#pragma unroll
+  for (int m = 0; m < N / 32; ++m) {
+    uint32_t a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) large_pack(acc, bias + n, 4 * m + i, relu, a[i], b[i]);
+    quad_transpose(a);
+    quad_transpose(b);
+    const int j = 4 * m + (lane & 3);   // this lane's n8 group (16-byte unit)
+    bf16* p = row + (j / 8) * (WG_ROWS * KC) + (((j % 8) ^ (r & 7)) << 3);
+    *reinterpret_cast<uint4*>(p) = make_uint4(a[0], a[1], a[2], a[3]);
+    *reinterpret_cast<uint4*>(p + 8 * KC) = make_uint4(b[0], b[1], b[2], b[3]);
+  }
+}
+
+// Rows r and r + 8 of the first `width` columns of the 64-row buffer g (after
+// the warpgroup's barrier that follows large_store) dotted with the
+// NV vectors v + k * stride, fp32, added to s[k]: per 32 columns row_dots'
+// steps, then the sum, as the wide path reduces its 32-column chunks.
+template <int NV>
+__device__ __forceinline__ void large_row_dots(const bf16* g, int width, const bf16* v,
+                                               int stride, float (&s)[NV][2]) {
   const int lane = threadIdx.x & 31;
   const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2), c2 = 2 * (lane & 3);
-  bf16* row = g + (NCW * c / KC) * (WG_ROWS * KC) + r * KC + c2;
+  const bf16* row = g + r * KC + c2;
+  for (int b = 0; b < width; b += 32) {
+    float d[NV][2];
 #pragma unroll
-  for (int j = 0; j < NCW / 8; ++j) {
-    const int u = ((NCW * c % KC / 8 + j) ^ (r & 7)) << 3;
-    *reinterpret_cast<uint32_t*>(row + u) = hc[2 * j];
-    *reinterpret_cast<uint32_t*>(row + 8 * KC + u) = hc[2 * j + 1];
+    for (int k = 0; k < NV; ++k) d[k][0] = d[k][1] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = b + 8 * j;
+      const bf16* p = row + (col / KC) * (WG_ROWS * KC) + ((((col % KC) >> 3) ^ (r & 7)) << 3);
+      const float2 a = unpack_bf16(__ldcg(reinterpret_cast<const unsigned int*>(p)));
+      const float2 c = unpack_bf16(__ldcg(reinterpret_cast<const unsigned int*>(p + 8 * KC)));
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const float2 w = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(v + k * stride + col + c2));
+        d[k][0] = fmaf(a.y, w.y, fmaf(a.x, w.x, d[k][0]));
+        d[k][1] = fmaf(c.y, w.y, fmaf(c.x, w.x, d[k][1]));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+#pragma unroll
+      for (int m = 1; m < 4; m <<= 1) {
+        d[k][0] += __shfl_xor_sync(0xffffffffu, d[k][0], m);
+        d[k][1] += __shfl_xor_sync(0xffffffffu, d[k][1], m);
+      }
+      s[k][0] += d[k][0];
+      s[k][1] += d[k][1];
+    }
   }
+}
+
+// One output chunk [n, n + N) of a layer: the products into the first N / 2
+// registers of acc (one array for every width, so that every chunk's
+// accumulator is the same registers), then the epilogue into out.
+template <int N>
+__device__ __forceinline__ void large_chunk_pass(float* acc, ARing& A, int n0, uint32_t a1,
+                                                 int n1, Pipe& pipe, const bf16* bias,
+                                                 bool relu, bf16* out, int n) {
+  mma_large_chunk<N>(acc, A, n0, a1, n1, pipe);
+  large_store<N>(acc, bias, relu, out, n);
 }
 
 // mlp_pass for any hidden width H = P.H above 512 (a multiple of 128): the
 // same layers, rounding points and outputs as mlp_pass_wide, with layer l
 // reading its input from buffer (l + 1) % 2 of the warpgroup's scratch pair
-// and writing buffer l % 2.
+// through the A ring and writing buffer l % 2, in output chunks of 256
+// columns (then 128, then 64: large_chunk) on the weight stream of
+// stage_weights' large route (64 K rows x the chunk's columns a stage). The
+// colour head's output goes to the buffer the feature layer read; sigma and
+// rgb are row dots of what the epilogues stored, read back after the layer's
+// barrier (no accumulator is live while they run).
 __device__ inline void mlp_pass_large(const LargeMlpArgs& P, const MlpSmem& S,
                                       int wg, Pipe& pipe) {
   const int H = __shfl_sync(0xffffffffu, P.H, 0);
-  const int kh = H / KC, nch = H / NCW;
+  const int kh = H / KC, half = H / 2;
   const int ke = __shfl_sync(0xffffffffu, P.EP / KC, 0);
   const int kd = __shfl_sync(0xffffffffu, P.EDP / KC, 0);
   const int n_layers = __shfl_sync(0xffffffffu, P.n_layers, 0);
   const int skip = __shfl_sync(0xffffffffu, P.skip_pos, 0);
   const uint32_t enc = smem_addr(S.enc[wg]), ed = smem_addr(S.ed[wg]);
-  const uint32_t slots = smem_addr(S.act[wg]);
-  bf16* buf[2];
-  buf[0] = P.scratch + size_t(blockIdx.x * N_CONSUMERS + wg) * 2 * WG_ROWS * H;
-  buf[1] = buf[0] + size_t(WG_ROWS) * H;
+  // buffer b of the warpgroup's pair at scratch + b * 64 * H
+  bf16* scratch = P.scratch + size_t(blockIdx.x * N_CONSUMERS + wg) * 2 * WG_ROWS * H;
+  uint32_t* count = large_ring_count(S, wg);
+  ARing A;
+  A.slots = smem_addr(S.act[wg]);
+  A.bars = large_ring_bars(S, wg);
+  A.issued = A.taken = A.freed = __shfl_sync(0xffffffffu, *count, 0);
+  A.left = 0;
+  int n_trunk = 0, n_head = 0;   // output chunks of a trunk layer, of the head
+  for (int n = 0; n < H; n += large_chunk(H - n)) ++n_trunk;
+  for (int n = 0; n < half; n += large_chunk(half - n)) ++n_head;
   const int lane = threadIdx.x & 31;
   const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
-  float sg0 = 0.0f, sg1 = 0.0f;
-  // the trunk, then the feature layer (l = n_layers, no activation)
-  for (int l = 0; l <= n_layers; ++l) {
-    const bool first = l == 0, feat = l == n_layers;
+  float* res = S.out[wg];
+  float acc[LNC / 2];
+  // the trunk, the feature layer (l = n_layers, no activation), then the
+  // colour head (l = n_layers + 1, width H/2, on [feature, enc_dir]) into
+  // the buffer the feature layer read: one loop, so that every wgmma of the
+  // pass sits in one region of code (a separate head loop made ptxas
+  // serialize them all)
+  for (int l = 0; l <= n_layers + 1; ++l) {
+    const bool first = l == 0, feat = l == n_layers, head = l > n_layers;
     const bf16* bias = first ? P.p[B0]
                        : feat ? P.p[B_FEAT]
+                       : head ? P.p[BC1]
                        : l == skip ? P.p[BSKIP]
                                    : P.p[B_MID] + H * (l - 1 - (l > skip));
-    const int n_enc = first || l == skip ? ke : 0;
-    for (int c = 0; c < nch; ++c) {
-      float acc[NCW / 2];
-      uint32_t hc[NCW / 4];
-      mma_large_chunk(acc, buf[(l + 1) & 1], first ? 0 : kh, enc, n_enc, slots, wg,
-                      pipe);
-      if (feat) {
-        epilogue<NCW, false>(acc, hc, bias + NCW * c);
-      } else {
-        epilogue<NCW, true>(acc, hc, bias + NCW * c);
-        if (l == n_layers - 1) {   // sigma from the last trunk activation
-          float a, b;
-          row_dots<NCW>(hc, P.p[W_SIG] + NCW * c, a, b);
-          sg0 += a;
-          sg1 += b;
-        }
-      }
-      store_chunk_global(buf[l & 1], hc, c);
+    const int n0 = first ? 0 : kh;
+    const int n1 = first || l == skip ? ke : head ? kd : 0;
+    const uint32_t a1 = head ? ed : enc;
+    const int width = head ? half : H, n_chunks = head ? n_head : n_trunk;
+    const bf16* in = scratch + size_t((l + 1) & 1) * WG_ROWS * H;
+    bf16* out = scratch + size_t(l & 1) * WG_ROWS * H;
+    A.begin(in, kh, first ? 0 : n_chunks);
+    if (feat) {
+      // sigma from the last trunk activation, while the layer's first
+      // slices land
+      float sg[1][2] = {{0.0f, 0.0f}};
+      large_row_dots<1>(in, H, P.p[W_SIG], 0, sg);
+      // the four lanes of a quad hold the same sums and store the same value
+      const float bs = __bfloat162float(P.p[B_SIG][0]);
+      res[r * 4 + 3] = sg[0][0] + bs;
+      res[(r + 8) * 4 + 3] = sg[0][1] + bs;
     }
+    for (int n = 0; n < width;) {
+      const int nc = large_chunk(width - n);
+      if (nc == LNC)
+        large_chunk_pass<LNC>(acc, A, n0, a1, n1, pipe, bias, !feat, out, n);
+      else if (nc == 128)
+        large_chunk_pass<128>(acc, A, n0, a1, n1, pipe, bias, !feat, out, n);
+      else
+        large_chunk_pass<64>(acc, A, n0, a1, n1, pipe, bias, !feat, out, n);
+      n += nc;
+    }
+    fence_async_global();
     wg_sync(wg);   // the layer's output is in place before the next reads it
   }
-  float* out = S.out[wg];
-  if ((lane & 3) == 0) {
-    const float bs = __bfloat162float(P.p[B_SIG][0]);
-    out[r * 4 + 3] = sg0 + bs;
-    out[(r + 8) * 4 + 3] = sg1 + bs;
-  }
-  // the colour head (width H/2) on [feature, enc_dir], one chunk at a time
-  const bf16* feature = buf[n_layers & 1];
   float rgb[3][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
-  for (int c = 0; c < nch / 2; ++c) {
-    float acc[NCW / 2];
-    uint32_t hc[NCW / 4];
-    mma_large_chunk(acc, feature, kh, ed, kd, slots, wg, pipe);
-    epilogue<NCW, true>(acc, hc, P.p[BC1] + NCW * c);
+  large_row_dots<3>(scratch + size_t((n_layers + 1) & 1) * WG_ROWS * H, half, P.p[WC2T],
+                    half, rgb);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      float a, b;
-      row_dots<NCW>(hc, P.p[WC2T] + k * (H / 2) + NCW * c, a, b);
-      rgb[k][0] += a;
-      rgb[k][1] += b;
-    }
+  for (int k = 0; k < 3; ++k) {
+    const float b = __bfloat162float(P.p[BC2][k]);
+    res[r * 4 + k] = rgb[k][0] + b;
+    res[(r + 8) * 4 + k] = rgb[k][1] + b;
   }
-  if ((lane & 3) == 0) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const float b = __bfloat162float(P.p[BC2][k]);
-      out[r * 4 + k] = rgb[k][0] + b;
-      out[(r + 8) * 4 + k] = rgb[k][1] + b;
-    }
-  }
+  *count = A.issued;   // the same value from every thread; read after wg_sync
 }
 
 // The pass of a kernel instantiated for hidden width H (0: the large route).

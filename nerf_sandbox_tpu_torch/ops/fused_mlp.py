@@ -12,8 +12,10 @@ in registers between layers at hidden widths 128 and 256; at 384 and 512
 they sit in shared memory and each layer runs in chunks of 32 columns; at
 every wider multiple of 128 (the large route, one instantiation for all)
 they sit in a ping-pong pair of global buffers per warpgroup, the scratch
-:func:`large_scratch` allocates per call, and each chunk copies its input
-through shared memory. The kernels take every width JAX's ``fusable`` takes.
+:func:`large_scratch` allocates per call, each layer runs in output chunks
+of up to 256 columns (:func:`large_chunks`) and bulk copies bring its input
+into shared memory a 64-column slice at a time. The kernels take every
+width JAX's ``fusable`` takes.
 
 Rounding points are those of the TPU kernel: bf16 operands, fp32
 accumulation, fp32 add of the bf16-rounded bias, relu then a bf16 cast
@@ -41,6 +43,7 @@ from nerf_sandbox_tpu_torch.ops import cuda_build
 TILE_M = 128                 # rows per weight fetch (csrc/mlp_tile.cuh)
 KC = 64                      # K rows of one weight stage (csrc/mlp_tile.cuh)
 NCW = 32                     # output columns of a wide stage (csrc/mlp_tile.cuh)
+LNC = 256                    # widest output chunk of the large route (csrc/mlp_tile.cuh)
 N_CONSUMERS = 2              # consumer warpgroups of a block (csrc/mlp_tile.cuh)
 WG_ROWS = 64                 # rows of one consumer warpgroup (csrc/mlp_tile.cuh)
 # hidden widths with a compile-time path; every other multiple of 128 takes
@@ -186,20 +189,39 @@ def _stage_array(w: torch.Tensor) -> torch.Tensor:
     return _swizzle_rows(chunks).reshape(-1)
 
 
+def large_chunks(n_out: int) -> list:
+    """The large route's output chunks of a matmul ``n_out`` columns wide,
+    in order: 256 columns while that many remain, then 128, then 64
+    (``csrc/mlp_tile.cuh:large_chunk``; 640 → 256, 256, 128, 320 → 256, 64)."""
+    widths = []
+    while n_out > 0:
+        widths.append(LNC if n_out >= LNC else 128 if n_out >= 128 else 64)
+        n_out -= widths[-1]
+    return widths
+
+
 def stage_weights(cfg: NeRFConfig, views: dict) -> torch.Tensor:
     """The weight stream of the CUDA kernels, in the order their stages use
     it, each stage one contiguous bulk copy in the layout wgmma reads
     (:func:`_stage_array`). Hidden width 128 / 256: each array of
-    :func:`_stream_layers` whole, stages of 64 K rows x N. 384 and wider
-    (the wide path and the large route): per matmul and per chunk of
-    ``NCW`` output columns, the chunk's columns of each of its arrays,
-    stages of 64 x NCW. → a flat bf16 tensor (stages back to back)."""
+    :func:`_stream_layers` whole, stages of 64 K rows x N. 384 and 512 (the
+    wide path): per matmul and per chunk of ``NCW`` output columns, the
+    chunk's columns of each of its arrays, stages of 64 x NCW. Wider (the
+    large route): the same per chunk of :func:`large_chunks`, stages of 64
+    x the chunk's width. → a flat bf16 tensor (stages back to back)."""
     layers = _stream_layers(cfg, views)
     if cfg.hidden_dim <= 256:
         parts = [_stage_array(w) for layer in layers for w in layer]
-    else:
+    elif not is_large(cfg):
         parts = [_stage_array(w[:, n:n + NCW]) for layer in layers
                  for n in range(0, layer[0].shape[1], NCW) for w in layer]
+    else:
+        parts = []
+        for layer in layers:
+            n = 0
+            for nc in large_chunks(layer[0].shape[1]):
+                parts += [_stage_array(w[:, n:n + nc]) for w in layer]
+                n += nc
     return torch.cat(parts)
 
 

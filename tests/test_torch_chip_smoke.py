@@ -83,6 +83,44 @@ def test_build_check(case, monkeypatch):
     assert bool(notes) == (case == "wide_serialized")
 
 
+@pytest.mark.parametrize("hidden,chunks_per_64_rows", [(640, 8 * 3 + 2),
+                                                       (1024, 8 * 4 + 2),
+                                                       (1152, 8 * 5 + 3)])
+def test_scratch_bytes_count_each_chunks_read(hidden, chunks_per_64_rows):
+    """The large route reads a warpgroup's 64 x H input once per output
+    chunk: per 64 rows of an 8-layer MLP, 7 trunk layers and the feature
+    layer of H / 256 chunks (rounded up) and the colour head's H / 2; at
+    1024, 34 x 128 KiB = 4.25 MiB. 2^20 rows are 8192 passes of 128."""
+    from nerf_sandbox_tpu_torch.models.mlp import NeRFConfig
+    cfg = NeRFConfig(63, 27, n_layers=8, hidden_dim=hidden, skip_pos=4)
+    read, written = cs.scratch_bytes(cfg, 8192)
+    assert read == 16384 * chunks_per_64_rows * 64 * hidden * 2
+    assert written == 16384 * 9 * 64 * hidden * 2
+    if hidden == 1024:
+        assert read == 16384 * 4.25 * 2 ** 20
+
+
+@pytest.mark.parametrize("hidden", [256, 1024])
+def test_fetch_line_adds_the_large_routes_activation_reads(hidden, capsys):
+    """fetch_line's rates: the staged weights once per pass; on the large
+    route also the scratch reads, with the rate of both together."""
+    import torch
+
+    from nerf_sandbox_tpu_torch.models.mlp import NeRFConfig
+    cfg = NeRFConfig(63, 27, n_layers=8, hidden_dim=hidden, skip_pos=4)
+    packed = types.SimpleNamespace(cfg=cfg, staged=torch.empty(1_000_000))
+    cs.fetch_line("t", 10.0, 2.5, 8192, packed, "card")
+    line = capsys.readouterr().out
+    assert "16.384 GB of weights from L2 in 10.000 ms = 1.638 TB/s" in line
+    assert "25.0% of the 2.500 ms bound | card" in line
+    if hidden == 256:
+        assert "scratch" not in line
+    else:
+        read = 16384 * 34 * 64 * 1024 * 2
+        assert f"{read / 1e9:.3f} GB of activations read from scratch" in line
+        assert f"= {(16.384e9 + read) / 10.0 / 1e9:.3f} TB/s;" in line
+
+
 def test_k2_parts_match_the_source():
     src = (cuda_build.CSRC / "fused_raymarch.cu").read_text()
     parts = {int(p) for p in re.findall(r"NERF_PART == (\d+)", src)}

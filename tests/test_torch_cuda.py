@@ -106,15 +106,18 @@ def test_k1_rejects_bad_inputs(cuda):
 WIDE = {"8x384": NeRFConfig(63, 27, n_layers=8, hidden_dim=384, skip_pos=4),
         "8x512": NeRFConfig(63, 27, n_layers=8, hidden_dim=512, skip_pos=4),
         "8x640": NeRFConfig(63, 27, n_layers=8, hidden_dim=640, skip_pos=4),
-        "8x1024": NeRFConfig(63, 27, n_layers=8, hidden_dim=1024, skip_pos=4)}
+        "8x1024": NeRFConfig(63, 27, n_layers=8, hidden_dim=1024, skip_pos=4),
+        "3x1152": NeRFConfig(63, 27, n_layers=3, hidden_dim=1152, skip_pos=1)}
 
 
 @pytest.mark.parametrize("wname", WIDE)
 @pytest.mark.parametrize("q", [1, 127, 129, 70000])
 def test_k1_wide_matches_plain(cuda, wname, q):
     """Hidden widths 384 and 512: the wide path (activations in shared
-    memory, layers in 32-column chunks); 640 and 1024: the large route
-    (activations in global scratch)."""
+    memory, layers in 32-column chunks); 640, 1024 and 1152: the large route
+    (activations in global scratch, output chunks of 256 columns; 640's
+    trunk and 1152's end on a 128-column chunk, their colour heads on a
+    64-column one)."""
     m = _model(WIDE[wname], 20, cuda)
     ep, ed = _enc(q, q + 1, cuda)
     before = fm.fused_nerf_apply.launches
@@ -137,7 +140,7 @@ K2_ROUTES = ("freq", "freq_contract", "ipe", "ipe_contract", "kplanes",
 @pytest.mark.parametrize("b", [1, 33, 16385])
 def test_k2_wide_routes_match_plain(cuda, route, wname, b):
     """Every K2 route on the wide instantiations (384, 512) and on the large
-    route (640, 1024), B off the ray groups, N = 63 off the passes; a finite
+    route (640, 1024, and 1152 for chunk tails), B off the ray groups, N = 63 off the passes; a finite
     last bin, so every ray is held: comp, w and acc at 2e-2, depth as
     sum(w z) at 2e-2 x z_far. The k-planes routes run the full-width grid
     (71 columns padded to 128, the tightest shared-memory budget)."""

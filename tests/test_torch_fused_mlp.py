@@ -200,7 +200,7 @@ def test_staged_weights_invert_to_views(name):
                                      + n_colour * tfm.KC * (H // 2))
 
 
-@pytest.mark.parametrize("hidden", [384, 512, 640])
+@pytest.mark.parametrize("hidden", [384, 512])
 def test_wide_staged_weights_invert_to_layers(hidden):
     """The wide path's stream: per matmul, per NCW-column chunk of its output,
     the chunk's 64 x NCW stages of each of its arrays in K order. Taking it
@@ -234,6 +234,65 @@ def test_wide_staged_weights_invert_to_layers(hidden):
     st = staged[:kc * nc].reshape(nc, 8, 8)
     n, k = torch.meshgrid(torch.arange(nc), torch.arange(kc), indexing="ij")
     assert torch.equal(st[n, (k // 8) ^ (n % 8), k % 8], packed.views["w0"][:kc, :nc].T)
+
+
+@pytest.mark.parametrize("hidden", [640, 1024, 1152])
+def test_large_staged_weights_invert_to_layers(hidden):
+    """The large route's stream: per matmul, per output chunk of
+    ``large_chunks`` (256 columns, then a 128 or 64 tail), the chunk's 64 x
+    width stages of each of its arrays in K order. Taking it apart stage by
+    stage gives back every array of ``_stream_layers``, bit for bit, and the
+    stage count the kernel's producer cycles through (per matmul, its chunks
+    times its K / 64)."""
+    cfg = tmlp.NeRFConfig(63, 27, n_layers=3, hidden_dim=hidden, skip_pos=2)
+    m = tmlp.NeRFMLP(cfg, generator=torch.Generator().manual_seed(7), device="cpu")
+    packed = tfm.pack_nerf_params(m)
+    staged, kc = packed.staged, tfm.KC
+    off = stages = 0
+    for layer in tfm._stream_layers(cfg, packed.views):
+        n_out = layer[0].shape[1]
+        rebuilt = [torch.zeros((-(-w.shape[0] // kc) * kc, n_out), dtype=torch.bfloat16)
+                   for w in layer]
+        n = 0
+        for nc in tfm.large_chunks(n_out):       # chunk by chunk, in kernel order
+            for r in rebuilt:
+                kp = r.shape[0]
+                st = tfm._swizzle_rows(staged[off:off + kp * nc].reshape(kp // kc, nc, kc))
+                r[:, n:n + nc] = st.transpose(1, 2).reshape(kp, nc)
+                off += kp * nc
+                stages += kp // kc
+            n += nc
+        assert n == n_out
+        for w, r in zip(layer, rebuilt):
+            assert torch.equal(r[:w.shape[0]], w)
+            assert not r[w.shape[0]:].float().any()
+    assert off == staged.numel()
+    # the producer's walk (csrc/mlp_tile.cuh, mlp_produce for LargeMlpArgs):
+    # matmul K of EP, H, H + EP at the skip, H (feature), H + EDP (colour)
+    ep, ed = tfm._enc_pads(cfg)
+    edp = -(-ed // kc) * kc
+    ks = [ep] + [hidden + ep if l == cfg.skip_pos else hidden
+                 for l in range(1, cfg.n_layers)] + [hidden, hidden + edp]
+    widths = [hidden] * (cfg.n_layers + 1) + [hidden // 2]
+    assert stages == sum(len(tfm.large_chunks(n)) * k // kc for k, n in zip(ks, widths))
+    # stage 0 is W0[0:64, 0:256] as 256 rows of 64 K values, swizzled
+    st = staged[:kc * tfm.LNC].reshape(tfm.LNC, 8, 8)
+    n, k = torch.meshgrid(torch.arange(tfm.LNC), torch.arange(kc), indexing="ij")
+    assert torch.equal(st[n, (k // 8) ^ (n % 8), k % 8], packed.views["w0"][:kc, :tfm.LNC].T)
+
+
+@pytest.mark.parametrize("hidden,trunk,head", [
+    (640, [256, 256, 128], [256, 64]),
+    (768, [256, 256, 256], [256, 128]),
+    (1024, [256, 256, 256, 256], [256, 256]),
+    (1152, [256, 256, 256, 256, 128], [256, 256, 64])])
+def test_large_chunk_plan_has_its_tails(hidden, trunk, head):
+    """The large route's output chunks: 256 columns while that many remain,
+    then a tail of 128 or 64, for the trunk's H and the colour head's H / 2;
+    each a width the kernel has a wgmma for (m64nNk16, N = 64, 128, 256)."""
+    assert tfm.large_chunks(hidden) == trunk
+    assert tfm.large_chunks(hidden // 2) == head
+    assert all(w in (64, 128, tfm.LNC) for w in trunk + head)
 
 
 @pytest.mark.parametrize("shape", [
@@ -279,3 +338,18 @@ def test_weight_stream_probe_finds_the_producer_copy():
     from nerf_sandbox_tpu_torch import probe_weight_stream as probe
     tile = Path(tfm.__file__).resolve().parent.parent / "csrc" / "mlp_tile.cuh"
     assert tile.read_text().count(probe.COPY) == 1
+
+
+@pytest.mark.parametrize("name", ["as is", "no epilogue stores", "no A copies",
+                                  "no layer barrier", "4 A slots", "word stores"])
+def test_large_route_probe_finds_its_edits(name):
+    """``probe_large_route`` edits a copy of csrc/mlp_tile.cuh once per
+    variant; every text it replaces must be there exactly once, and every
+    variant but the unedited one must change the file."""
+    from pathlib import Path
+
+    from nerf_sandbox_tpu_torch import probe_large_route as probe
+    tile = (Path(tfm.__file__).resolve().parent.parent / "csrc" / "mlp_tile.cuh").read_text()
+    assert set(probe.VARIANTS) == {"as is", "no epilogue stores", "no A copies",
+                                   "no layer barrier", "4 A slots", "word stores"}
+    assert (probe.variant_text(tile, name) == tile) == (name == "as is")
