@@ -21,8 +21,9 @@ Phases (any failure exits non-zero):
    ``nvcc`` (one process per source, in parallel) and prints, from each
    library's ``-Xptxas -v`` report (kept beside it, so a cached build reports
    too), every kernel's registers, spills and wgmma-serialization notes
-   (C7510-C7520); fails on a spill anywhere, and on such a note in K1 or K2
-   at hidden width 128 or 256 or on the large route (above 512);
+   (C7510-C7520), and each route's ring of weight stages in K1 and K2 as the
+   built libraries plan it; fails on a spill anywhere, and on a note that
+   says an instantiation's wgmmas are serialized;
 3. K1 (fused MLP) against its plain PyTorch version at 16384x64 rows with the
    reference's 8x256 weights (``tests/golden/mlp_state.npz``), max |diff|
    <= 0.05, timed with CUDA events (median of 10 after warm-up); beside it,
@@ -68,12 +69,15 @@ Phases (any failure exits non-zero):
    use_kernel=True)`` through K1, counted as in 5; frame 1 against the plain
    path as in 5;
 5w. hidden widths 384 and 512 (K1 and K2's wide instantiations): K1 at
-   2^20 rows of 8x384 and 8x512 skip-4 MLPs with seeded weights and one 8x512
-   Blender fine tile (phase 4's) on the frequency route, against their plain
-   versions (phase 3's and phase 4's tolerances), timed with their bounds;
-   then one 800x800 frame of the 8x512 model through ``render_pose`` (80
-   frequency launches) and each width's ``nerf_forward_pass(use_kernel=True)``
-   through K1, counted;
+   2^20 rows of 8x384 and 8x512 skip-4 MLPs with seeded weights, beside the
+   bf16 cuBLAS chain, and one 8x512 and one 8x384 Blender fine tile (phase
+   4's) on the frequency route, against their plain versions (phase 3's and
+   phase 4's tolerances), timed with their bounds, each with the bytes its
+   wgmmas read from shared memory and the rate that implies
+   (``wide_smem_bytes``); then one 800x800 frame of the 8x512 model through
+   ``render_pose`` (80 frequency launches), the 8x384 model through
+   ``render_rays_chunked`` on that tile's 16384 rays (two K2 launches) and
+   each width's ``nerf_forward_pass(use_kernel=True)`` through K1, counted;
 5x. hidden widths above 512 (the large route of K1 and K2, activations in
    global scratch): K1 at 2^20 rows of 8x640 and 8x1024 skip-4 MLPs with
    seeded weights and one 8x1024 Blender fine tile (phase 4's) on the
@@ -145,6 +149,7 @@ import time
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, H100 SXM
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores, H100 SXM
 H100_HBM_BYTES = 3.35e12        # HBM3 bandwidth, H100 SXM
+H100_SMS = 132                  # streaming multiprocessors, H100 SXM
 N_POSES = 2
 IMG = 800
 FOCAL = 1111.1
@@ -232,14 +237,42 @@ def scratch_bytes(cfg, passes):
     return per_read * chunks, per_read * (cfg.n_layers + 1)
 
 
+def wide_smem_bytes(cfg, passes):
+    """The wide path's wgmma operand reads from shared memory in ``passes``
+    MLP passes of ``TILE_M`` rows: each consumer warpgroup reads its A (64
+    rows x 64 K, 8 KiB) once per stage, a stage being NCW columns of an
+    output chunk (``large_chunks``) per 64 K rows, and every stage's B (64 K
+    x its columns) once. The matmuls' K, padded to 64, and N: layer 0 (EP),
+    the trunk's layers (H, H + EP at the skip), the feature layer (H) and the
+    colour head (H + EDP, H / 2). → (A bytes, B bytes)."""
+    from nerf_sandbox_tpu_torch.ops import fused_mlp as fm
+    H = cfg.hidden_dim
+    ep, ed = fm._enc_pads(cfg)
+    edp = -(-ed // fm.KC) * fm.KC
+    ks = [ep] + [H + ep if l == cfg.skip_pos else H for l in range(1, cfg.n_layers)]
+    a = b = 0
+    for k, n in zip(ks + [H, H + edp], [H] * (cfg.n_layers + 1) + [H // 2]):
+        stages = sum(-(-c // fm.NCW) for c in fm.large_chunks(n))
+        a += fm.WG_ROWS * k * 2 * stages
+        b += k * n * 2
+    return passes * fm.N_CONSUMERS * a, passes * fm.N_CONSUMERS * b
+
+
 def fetch_line(tag, ms, bound_ms, passes, packed, card):
     """Rows per weight fetch, the weight bytes a call pulls from L2 (the
-    staged stream once per pass) and the rate that implies; on the large
-    route also the activation bytes read from (and written to) its scratch
-    and the rate of both reads; the share of the bound."""
+    staged stream once per pass) and the rate that implies; on the wide path
+    also the bytes its wgmmas read from shared memory and their rate (card-
+    wide and per SM); on the large route the activation bytes read from (and
+    written to) its scratch and the rate of both reads; the share of the
+    bound."""
     from nerf_sandbox_tpu_torch.ops import fused_mlp as fm
     nbytes = passes * packed.staged.numel() * 2
     act = ""
+    if packed.cfg.hidden_dim in fm.KERNEL_HIDDEN[2:]:
+        a, b = wide_smem_bytes(packed.cfg, passes)
+        act = (f"{(a + b) / 1e9:.3f} GB read from shared memory by wgmma (A "
+               f"{a / 1e9:.3f}, B {b / 1e9:.3f}) = {(a + b) / ms / 1e9:.3f} TB/s, "
+               f"{(a + b) / ms / 1e6 / H100_SMS:.1f} GB/s per SM; ")
     if fm.is_large(packed.cfg):
         rd, wr = scratch_bytes(packed.cfg, passes)
         act = (f"{rd / 1e9:.3f} GB of activations read from scratch ({wr / 1e9:.3f} "
@@ -365,40 +398,36 @@ def hidden_label(h):
 
 
 def kernel_label(mangled):
-    """A readable name of K1's and K2's instantiations → (label, wide or
-    None when not K1/K2); wide is True for the wide path (384 / 512) only,
-    False for 128 / 256 and the large route (template width 0)."""
+    """A readable name of K1's, K2's and K5's instantiations (else the
+    mangled or plain name)."""
     k5 = re.search(r"precision_dot_kernelILi(\d)E", mangled)
     if k5:
-        return f"K5 precision_dot<{('bf16', 'tf32', 'bf16x3', 'fp32')[int(k5.group(1))]}>", None
+        return f"K5 precision_dot<{('bf16', 'tf32', 'bf16x3', 'fp32')[int(k5.group(1))]}>"
     m = re.match(r"_Z(\d+)", mangled)
     if not m:
-        return mangled, None
+        return mangled
     name = mangled[m.end():m.end() + int(m.group(1))]
     args = [int(a) for a in re.findall(r"L[ib](\d+)E", mangled[m.end() + int(m.group(1)):]
                                         .split("EEv")[0] + "E")]
     if name == "fused_mlp_kernel" and len(args) == 1:
-        return f"K1 fused_mlp<{hidden_label(args[0])}>", args[0] > 256
+        return f"K1 fused_mlp<{hidden_label(args[0])}>"
     if name == "fused_raymarch_kernel" and len(args) == 3:
         enc = ("freq", "kplanes", "ipe")[args[0]]
         return (f"K2 fused_raymarch<{enc}{', contract' if args[1] else ''}, "
-                f"{hidden_label(args[2])}>", args[2] > 256)
-    return name, None
+                f"{hidden_label(args[2])}>")
+    return name
 
 
 def build_notes(cuda_build):
     """Registers, spills and wgmma notes (C7510-C7520) of every kernel, from
     each library's persisted ``-Xptxas -v`` report (a cached build reports
     too); the notes that serialize wgmmas are printed in full. Fails on a
-    spill anywhere and on a serializing note in K1 or K2 at hidden width 128
-    or 256 or on the large route. → {label: serializing notes} of the wide
-    (384 / 512) ones."""
-    wide_notes = {}
+    spill anywhere and on a serializing note in any instantiation."""
     for src in cuda_build.SOURCES:
         log = cuda_build.build_log(src)
         check(log, f"no compiler report for {src}")
         for mangled, e in ptxas_entries(log).items():
-            label, wide = kernel_label(mangled)
+            label = kernel_label(mangled)
             codes = {}
             for note in e["notes"]:
                 code = WGMMA_NOTE.search(note).group(1)
@@ -412,12 +441,27 @@ def build_notes(cuda_build):
                 print(f"[build]     {note[:300]}", flush=True)
             check(e["spill_stores"] == 0 and e["spill_loads"] == 0,
                   f"{label} spills registers")
-            check(wide is not False or not serial,
-                  f"{label} (hidden width 128 / 256 or the large route) "
-                  f"serializes its wgmmas")
-            if wide and serial:
-                wide_notes[label] = serial
-    return wide_notes
+            check(not serial, f"{label} serializes its wgmmas")
+
+
+def ring_depths(cuda_build):
+    """The weight stages each route of K1 and K2 holds in shared memory (the
+    ring's depth), as the built libraries plan them (``nerf_ring_stages``)
+    for an 8-layer MLP at each hidden-width route and the encoder widths the
+    port pads to (64: frequency and IPE; 128: k-planes). → {(kernel, H,
+    EP): stages}."""
+    import ctypes
+    k1, k2 = cuda_build.load("fused_mlp"), cuda_build.load("fused_raymarch")
+    k1.nerf_ring_stages.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong]
+    k2.nerf_march_extra.argtypes = []
+    k2.nerf_march_extra.restype = ctypes.c_longlong
+    extra = {"K1": 0, "K2": k2.nerf_march_extra()}
+    depths = {(k, H, ep): k1.nerf_ring_stages(H, ep, 32, 8, x)
+              for H in (128, 256, 384, 512, 640) for ep in (64, 128)
+              for k, x in extra.items()}
+    print(f"[build] weight stages in the ring by (kernel, H, EP) (H = 640: every "
+          f"width of the large route): {depths}", flush=True)
+    return depths
 
 
 def last_bin_kink(pairs):
@@ -1124,7 +1168,7 @@ def k1_widths(torch, dev, card, widths, kernels, route, reps=10):
               f"{2.0 * mlp_macs_per_row(cfg) / 1e6:.3f} MFLOP a row; "
               f"{100.0 * b_ms / ms:.1f}% of the bound) | {card}", flush=True)
         fetch_line(f"K1 8x{H} {route}", ms, b_ms, -(-Q // fm.TILE_M), pk, card)
-        if fm.is_large(cfg):
+        if H > 256:
             ep_pad, ed_pad = fm.pad_cols_bf16(ep, 64), fm.pad_cols_bf16(ed, 32)
             chain_ms = cuda_ms(torch, lambda: mlp_chain_bf16(torch, pk, ep_pad, ed_pad),
                                reps=reps)
@@ -1197,12 +1241,14 @@ def k2_fine_tile(torch, card, t4, m, kernels, route, reps=10, depth_as_sum=False
 
 def phase_wide(torch, dev, card, t4, kernels):
     """3w, 4w, 5w: hidden widths 384 and 512, the wide instantiations of K1
-    and K2 (activations in shared memory, layers in 32-column chunks). K1 at
-    2^20 rows of an 8xH skip-4 MLP with seeded weights, and one 8x512
-    Blender fine tile (phase 4's) on the frequency route, against their plain
-    versions, timed with their bounds; then one 800x800 Blender frame of the
-    8x512 model through ``render_pose`` and each width's
-    ``nerf_forward_pass(use_kernel=True)`` through K1, counted. → launches."""
+    and K2 (activations in shared memory, layers in output chunks of 256
+    columns). K1 at 2^20 rows of an 8xH skip-4 MLP with seeded weights, and
+    one 8x512 and one 8x384 Blender fine tile (phase 4's) on the frequency
+    route, against their plain versions, timed with their bounds; then one
+    800x800 Blender frame of the 8x512 model through ``render_pose``, the
+    8x384 model through ``render_rays_chunked`` on the tile's rays and each
+    width's ``nerf_forward_pass(use_kernel=True)`` through K1, counted. →
+    launches."""
     import numpy as np
 
     from nerf_sandbox_tpu_torch.core.encoding import vanilla_encoders
@@ -1210,12 +1256,13 @@ def phase_wide(torch, dev, card, t4, kernels):
     from nerf_sandbox_tpu_torch.ops import fused_mlp as fm
     from nerf_sandbox_tpu_torch.ops import fused_raymarch as fr
     from nerf_sandbox_tpu_torch.render.renderer import (
-        EvalHyper, make_tile_renderer, render_pose)
+        EvalHyper, make_tile_renderer, render_pose, render_rays_chunked)
 
     pos_bands, dir_bands = vanilla_encoders()
     models = k1_widths(torch, dev, card, (384, 512), kernels, "wide")
     m = models[512]
     got, kink = k2_fine_tile(torch, card, t4, m, kernels, "wide")
+    k2_fine_tile(torch, card, t4, models[384], kernels, "wide")
     ro, rd, rn, vd, z = (t4[k] for k in ("ro", "rd", "rn", "vd", "z"))
 
     # 5w: the wide slice, counted
@@ -1256,6 +1303,20 @@ def phase_wide(torch, dev, card, t4, kernels):
     launches["fused_mlp_h384"] = fm.fused_nerf_apply.launches
     check(launches["fused_mlp_h384"] >= 1 and bool(torch.isfinite(fwd3[0]).all()),
           "K1 8x384 was not launched or gave non-finite colours")
+    fr.reset_launches()
+    tile_3 = make_tile_renderer(EvalHyper(model=models[384].cfg, use_kernel=True),
+                                pos_bands, dir_bands, device=dev)
+    out3 = render_rays_chunked(tile_3, models[384], models[384], ro, rd, rn, vd,
+                               eval_chunk=EVAL_CHUNK, device=dev)
+    torch.cuda.synchronize()
+    launches["fused_raymarch_h384"] = fr.fused_raymarch.route_launches["freq"]
+    check(fr.fused_raymarch.launches == launches["fused_raymarch_h384"] == 2,
+          f"the 8x384 tile launched K2 {fr.fused_raymarch.launches} times "
+          f"({dict(fr.fused_raymarch.route_launches)}), expected 2 frequency launches")
+    for key in ("rgb", "acc", "depth"):
+        check(bool(torch.isfinite(out3[key]).all()), f"8x384 render {key} not finite")
+    check(float(out3["rgb"].min()) >= 0.0 and float(out3["rgb"].max()) <= 1.0,
+          "8x384 render rgb outside [0, 1]")
     print(f"[slice 8x512] one {IMG}x{IMG} frame {secs:.3f} s, launches {launches}, "
           f"K2 routes {routes}; nerf_forward_pass vs K2 on the tile, off the kink: "
           f"comp max|diff| {fwd_err:.3g} | {card}", flush=True)
@@ -1947,9 +2008,9 @@ def run(torch, root):
           f"{sorted(report) or 'nothing (already built)'}", flush=True)
     for src, rep in report.items():
         print(f"[build] {src}: {rep['seconds']:.2f} s", flush=True)
-    wide_notes = build_notes(cuda_build)
-    print(f"[build] wide (384 / 512) instantiations of K1 and K2 with serialized "
-          f"wgmmas: {sorted(wide_notes) or 'none'}", flush=True)
+    build_notes(cuda_build)
+    depths = ring_depths(cuda_build)
+    check(all(depths.values()), f"a route holds fewer than two weight stages: {depths}")
 
     cfg = NeRFConfig(enc_pos_dim=63, enc_dir_dim=27, n_layers=8,
                      hidden_dim=256, skip_pos=4)

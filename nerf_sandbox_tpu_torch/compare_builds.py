@@ -15,8 +15,11 @@ does, and times, in the order old, new, new, old (each a median of 10
 CUDA-event runs after warm-up): K1 at 2^20 rows and K2 on the Blender fine
 (16384 x 192) eval tile of ``chip_smoke.py`` (frame 1's mid-frame tile) at
 each width of ``--hidden`` (8 layers, skip 4; the reference weights at 256,
-seeded ones at the others), K2 on the coarse (16384 x 64) tile at 256 and
-at each width above 512, and K3's
+seeded ones at the others), K2 on the coarse (16384 x 64) tile at each
+width from 256, K2's other five routes on the fine tile at each width (the
+frequency encoder with contraction, IPE with and without, and k-planes with
+and without, on the full-width planes of ``chip_smoke.kp_configs`` with
+seeded tables and an MLP of that width), and K3's
 encode-only entry on the contracted
 points of a 360 tile (16384 rays of frame 1's middle x 192 lindisp samples,
 the full-width planes of ``chip_smoke.kp_configs``). Both builds are called
@@ -49,7 +52,8 @@ def build_variant(csrc: Path, tag: str,
                   names=("fused_mlp", "fused_raymarch", "kplanes_encode")) -> dict:
     """nvcc each named source of csrc into build/<tag>/ with the package's
     flags, in parallel, a source of ``cuda_build.PARTS`` one compiler per
-    part, then linked. → {name: loaded library}."""
+    part, then linked; each source's compiler report (``-Xptxas -v``) is
+    kept as build/<tag>/<name>.log. → {name: loaded library}."""
     from nerf_sandbox_tpu_torch.ops import cuda_build
     out_dir = ROOT / "build" / tag
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -68,6 +72,7 @@ def build_variant(csrc: Path, tag: str,
     libs = {}
     for name, (ps, objs, lib) in procs.items():
         logs = [p.communicate()[0] for p in ps]
+        (out_dir / f"{name}.log").write_text("".join(logs))
         if any(p.returncode for p in ps):
             raise RuntimeError(f"{csrc / name}.cu failed to build:\n{''.join(logs)}")
         if objs:
@@ -214,10 +219,27 @@ def main(argv=None) -> int:
                            + ([ctypes.c_void_p, ctypes.c_int] if large else [])
                            + [ctypes.c_void_p] * 3)
             g[w, large] = fn
-    coarse = [H for H in widths if H == 256 or H in scratch]
+    coarse = [H for H in widths if H >= 256]
+    others = ["freq_contract", "ipe", "ipe_contract", "kplanes", "kplanes_contract"]
+    # K4's pixel-cone radii (any positive values do for comparing builds),
+    # and the k-planes routes' tables and MLPs of each width
+    radii = (rn * 5e-4).contiguous()
+    kcfg, kp_mlp = cs.kp_configs()
+    grid = ke.pack_kplanes(NeRFMLP(kp_mlp, generator=torch.Generator().manual_seed(2),
+                                   grid_cfg=kcfg, device=dev).pos_grid, kcfg)
+    kp_ep = fm._enc_pads(kp_mlp)[0]
+    kp_args = ke.kp_c_args(grid)
+    kp_packs = {}
+    for H in widths:
+        kp_packs[H] = pk = fm.pack_nerf_params(NeRFMLP(
+            NeRFConfig(kp_mlp.enc_pos_dim, 27, 8, H, 4),
+            generator=torch.Generator().manual_seed(H + 1), device=dev))
+        staged["new", "kplanes", H] = pk.staged
+        staged["old", "kplanes", H] = old_stage(pk.cfg, pk.views).contiguous()
     tiles = {}
     for name, z, H in ([("fine", zf, H) for H in widths]
-                       + [("coarse", zc, H) for H in coarse]):
+                       + [("coarse", zc, H) for H in coarse]
+                       + [(r, zf, H) for r in others for H in widths]):
         B, N = z.shape
         outs = {k: (torch.empty((B, 5), dtype=torch.float32, device=dev),
                     torch.empty((B, N), dtype=torch.float32, device=dev))
@@ -227,21 +249,22 @@ def main(argv=None) -> int:
     def k2(which, name, H):
         z, outs = tiles[name, H]
         B, N = z.shape
-        pk = packs[H]
-        rest = [B, N, 27, H, ep_pad, ed_pad, 8, 4,
-                0, 1, 0, 0.0, 0, None, None, None, None, 0, 0, 0, 0, 0, 0.0, None, 0,
+        kp = name.startswith("kplanes")
+        pk = kp_packs[H] if kp else packs[H]
+        st = staged[which, "kplanes", H] if kp else staged[which, H]
+        rest = [B, N, 27, H, kp_ep if kp else ep_pad, ed_pad, 8, 4, 0, 1, 0, 0.0,
+                int(name.endswith("contract")),
+                _ptr(radii) if name.startswith("ipe") else None,
+                *(kp_args if kp else [None, None, None, 0, 0, 0, 0, 0, 0.0, None, 0]),
                 *large_args(H), _ptr(outs[which][0]), _ptr(outs[which][1]), stream]
         rays = [_ptr(ro), _ptr(rd), _ptr(rn), _ptr(enc_dir), _ptr(z)]
         weights = [c_bands, bands.size, 1, _ptr(pk.flat), fm.offsets_arg(pk)]
-        err = g[which, H in scratch](*rays, 1, *weights, _ptr(staged[which, H]), *rest)
+        err = g[which, H in scratch](*rays, 1, *weights, _ptr(st), *rest)
         if err:
             raise RuntimeError(f"{which} K2 launch: CUDA error {err}")
 
-    # K3 inputs: the 360 configuration's tables (seeded) on contracted points
-    kcfg, kp_mlp = cs.kp_configs()
-    grid = ke.pack_kplanes(NeRFMLP(kp_mlp, generator=torch.Generator().manual_seed(2),
-                                   grid_cfg=kcfg, device=dev).pos_grid, kcfg)
-    kp_ep = fm._enc_pads(kp_mlp)[0]
+    # K3 inputs: the 360 configuration's tables (K2's k-planes routes') on
+    # contracted points
     rays_360 = get_camera_rays_grid(
         torch.from_numpy(Kmat).to(dev), torch.from_numpy(cs.orbit_360_pose(1)).to(dev),
         image_h=cs.IMG, image_w=cs.IMG, pixel_center=True)
@@ -255,7 +278,6 @@ def main(argv=None) -> int:
     for fn in h.values():
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + ke.KP_C_ARGTYPES
                        + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    kp_args = ke.kp_c_args(grid)
 
     def k3(which):
         err = h[which](_ptr(pts), pts.shape[0], *kp_args, kp_ep, _ptr(k3_out[which]),
@@ -269,6 +291,8 @@ def main(argv=None) -> int:
              for H in widths]
     runs += [(f"K2 coarse 16384x64 H={H}", lambda w, H=H: k2(w, "coarse", H))
              for H in coarse]
+    runs += [(f"K2 {r} fine 16384x192 H={H}", lambda w, r=r, H=H: k2(w, r, H))
+             for r in others for H in widths]
     runs.append((f"K3 encode-only {pts.shape[0]} rows", k3))
     for label, fn in runs:
         times = []

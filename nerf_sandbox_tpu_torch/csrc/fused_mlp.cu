@@ -44,10 +44,11 @@ fused_mlp_kernel(const bf16* __restrict__ enc_pos,
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * TILE_M + wg * WG_ROWS;
     wg_sync(wg);   // the last pass's reads of enc, ed and out are done
-    if constexpr (H == 0) {
-      // the large route: the same copies, each thread's trip count written
-      // out (64 x EP / 128 is whole), so that no loop ptxas takes for
-      // divergent runs before the pass (it then serialized the pass's wgmmas)
+    if constexpr (R != ROUTE_REGS) {
+      // the wide path and the large route: the same copies, each thread's
+      // trip count written out (64 x EP / 128 is whole), so that no loop
+      // ptxas takes for divergent runs comes before the pass (on the large
+      // route it then serialized the pass's wgmmas)
       for (int k = 0; k < WG_ROWS * P.EP / WG_THREADS; ++k) {
         const int i = t + k * WG_THREADS, q = i / P.EP, c = i % P.EP, r = row0 + q;
         enc[swz(q, c)] = (r < Q && c < P_dim) ? enc_pos[size_t(r) * P_dim + c] : zero;
@@ -137,4 +138,14 @@ extern "C" int nerf_fused_mlp_large(const void* enc_pos, const void* enc_dir,
   return fused_mlp_entry(enc_pos, enc_dir, wpack, offsets, staged, Q, P_dim, D_dim, H,
                          EP, ED, n_layers, skip_pos, scratch, scratch_blocks, out,
                          stream);
+}
+
+// The weight stages (ring depth) that plan_stages gives a launch at these
+// shapes beside `extra` bytes of the calling kernel's own shared memory
+// (K2's: nerf_march_extra), 0 where not even two fit.
+extern "C" int nerf_ring_stages(int H, int EP, int ED, int n_layers, long long extra) {
+  MlpArgs a{};
+  a.H = H; a.EP = EP; a.ED = ED; a.EDP = (ED + KC - 1) / KC * KC;
+  a.n_layers = n_layers;
+  return plan_stages(a, static_cast<size_t>(extra)) ? a.NS : 0;
 }

@@ -551,4 +551,8 @@ extern "C" int nerf_fused_raymarch_large(MARCH_PARAMS, void* scratch,
                                          void* out_w, void* stream) {
   return raymarch_entry(MARCH_ARGS, scratch, scratch_blocks, out_ray, out_w, stream);
 }
+
+// The shared memory K2 takes beside the MLP's (MARCH_EXTRA), for
+// nerf_ring_stages.
+extern "C" long long nerf_march_extra() { return MARCH_EXTRA; }
 #endif

@@ -53,22 +53,34 @@
 //
 // Hidden widths 384 and 512 (the wide path): a 64 x H accumulator would need
 // H/2 registers a thread, more than CONSUMER_REGS leaves, so each consumer
-// warpgroup keeps its 64 x H bf16 activations in shared memory (act,
-// swizzled like enc, 64 KiB at H = 512) and every layer reads its A operand
-// from there through descriptors. A
-// layer runs in chunks of NCW = 32 output columns: a 64 x 32 fp32
-// accumulator (16 registers); the chunk's bias/relu/bf16 epilogue keeps its
-// packed result in registers (8 a chunk, up to 16 chunks held: 128
-// registers at H = 512); after the layer's last wgmma every chunk is written
-// back over act in place, then fence_async_smem and the warpgroup's own
-// barrier (act is the warpgroup's own, so no block-wide barrier). The
-// weights stream as 64 (K) x 32 (N) stages of 4 KiB, in (layer, n-chunk,
-// k-chunk) order (stage_weights), so the ring holds up to 8 stages beside
-// 2 x 64 KiB of activations. Sigma and the colour head read the held chunks.
-// With 64-column chunks (a 32-register accumulator) the H = 512 builds
-// spilled a few registers and K1's serialized its wgmmas; 32 leaves room.
-// The H = 128 / 256 path does not share this code: the wide path is selected
-// at compile time (H > 256), one instantiation per width.
+// warpgroup keeps its 64 x H bf16 activations in shared memory (act, swizzled
+// like enc, 64 KiB at H = 512) and every layer reads its A operand from there
+// through descriptors. A layer runs in output chunks of LNC = 256 columns,
+// then a 128 tail (large_chunk: 512 = 256 + 256, 384 = 256 + 128; the colour
+// head's 256, or 192 = 128 + 64), each into one 64 x 256 fp32 accumulator
+// array (128 registers, the large route's; first product Wgmma::ss0), so act
+// is read H / 128 times a layer where 32-column chunks read it H / 32 times.
+// The weights stream as stages of 64 K rows x NCW = 128 columns (16 KiB; a
+// 256-column chunk takes two per 64 K rows, one m64n128k16 product into each
+// half of the accumulator; a 64-column tail fills the front of one), in
+// (layer, chunk, array, K, half) order (stage_weights' wide stream). Each
+// stage is committed as one wgmma group, and the consumers wait only for the
+// group before it, so two stages' products are in flight. The first chunk's
+// bias/relu/bf16 epilogue parks its result in registers (64 a thread, already
+// transposed within each quad into 16-byte units); after the layer's last
+// wgmma (and the warpgroup's barrier: every warp's products have read act) the
+// parked chunk and the last chunk's epilogue go over act in place as 16-byte
+// stores, then fence_async_smem and the warpgroup's own barrier (act is the
+// warpgroup's own, so no block-wide barrier). Biases and head vectors are read
+// from global memory (no prm region), which leaves room for 3 stages at H =
+// 512 in K1 and the frequency K2 (2 where the encoding is padded to 128
+// columns). sigma is a row dot of the last trunk activation read back from
+// act, and rgb row dots of the colour head's epilogue, both in 32-column
+// blocks, so the outputs are those of 32-column chunks. The layer-end stores
+// go in pairs of 16-byte units, odd rows taking their partner's first, so that
+// a quarter warp's two rows fill all 32 banks (probe_large_route.py --route
+// wide). The H = 128 / 256 path does not share this code: the wide path is
+// selected at compile time (H > 256), one instantiation per width.
 //
 // Hidden widths above 512 (the large route; any multiple of 128, H a run-time
 // value, one instantiation for all): neither the 64 x H activations of both
@@ -76,35 +88,34 @@
 // registers a thread) fits, so each consumer warpgroup keeps its activations
 // in a ping-pong pair of 64 x H bf16 buffers in global memory (LargeMlpArgs::
 // scratch, allocated by the caller per persistent block), in the swizzled
-// layout of act, where a 64-column slice is 8 KiB contiguous. A layer runs
-// in output chunks of up to LNC = 256 columns (then 128, then 64:
-// large_chunk; 640 = 256 + 256 + 128), each a 64 x 256 fp32 accumulator (128
-// registers, the register path's) fed by m64n256k16 wgmmas, so the input is
-// read H / 256 times a layer where 32-column chunks read it H / 32 times.
-// The A operand comes through a ring of NA = 3 shared slots per warpgroup
-// (ARing): lane 0 of the warpgroup issues one cp.async.bulk per 8 KiB slice,
-// completed on the slot's mbarrier, up to NA slices ahead and across the
-// chunks of a layer, and each warp releases a slot once its wgmmas have
-// read it, as the weight stages are released. The chunk's epilogue (bias,
-// relu, bf16) goes straight from the accumulator to the other buffer with
-// st.global; at the end of a layer every thread runs fence.proxy.async.global
-// and the warpgroup's barrier before the next layer's copies are issued, so
-// that the bulk copies (async proxy) see the stores. The weights stream in
-// stages of 64 K rows x the chunk's columns (32 KiB at 256; stage_weights'
-// large stream), which a separate overload of mlp_produce walks. The colour
-// head is the last step of the layer loop (its output goes to the buffer the
-// feature layer read), and sigma and rgb are row dots of stored activations,
-// read back after the layer's barrier, in the wide path's 32-column order,
-// so the outputs are those of 32-column chunks. The epilogue stores whole
-// 16-byte units (a quad transposes its pairs with shuffles first), four
-// times fewer stores than one 4-byte word per pair, which ran markedly
-// slower (probe_large_route.py). What ptxas needs to keep these wgmmas
-// asynchronous (chip_smoke.py phase 2 fails otherwise): one accumulator
-// array for every chunk width, its first product written only
-// (Wgmma::ss0), every wgmma of a pass in one loop, and no loop of
-// thread-dependent trip count before the pass (K1 stages its rows with trip
-// counts written out on this route). Biases and head vectors are read from
-// global memory, so shared memory does not grow with H.
+// layout of act, where a 64-column slice is 8 KiB contiguous. A layer runs in
+// output chunks of up to LNC = 256 columns (then 128, then 64: large_chunk;
+// 640 = 256 + 256 + 128), each a 64 x 256 fp32 accumulator (128 registers, the
+// register path's) fed by m64n256k16 wgmmas, so the input is read H / 256
+// times a layer where 32-column chunks read it H / 32 times. The A operand
+// comes through a ring of NA = 3 shared slots per warpgroup (ARing): lane 0 of
+// the warpgroup issues one cp.async.bulk per 8 KiB slice, completed on the
+// slot's mbarrier, up to NA slices ahead and across the chunks of a layer, and
+// each warp releases a slot once its wgmmas have read it, as the weight stages
+// are released. The chunk's epilogue (bias, relu, bf16) goes straight from the
+// accumulator to the other buffer with st.global; at the end of a layer every
+// thread runs fence.proxy.async.global and the warpgroup's barrier before the
+// next layer's copies are issued, so that the bulk copies (async proxy) see
+// the stores. The weights stream in stages of 64 K rows x the chunk's columns
+// (32 KiB at 256; stage_weights' large stream), which an overload of
+// mlp_produce walks. The colour head is the last step of the layer loop (its
+// output goes to the buffer the feature layer read), and sigma and rgb are row
+// dots of stored activations, read back after the layer's barrier, in
+// 32-column blocks as the wide path sums them, so the outputs are those of
+// 32-column chunks. The epilogue stores whole 16-byte units (a quad transposes
+// its pairs with shuffles first), four times fewer stores than one 4-byte word
+// per pair, which ran markedly slower (probe_large_route.py). What ptxas needs
+// to keep these wgmmas asynchronous (chip_smoke.py phase 2 fails otherwise):
+// one accumulator array for every chunk width, its first product written only
+// (Wgmma::ss0), every wgmma of a pass in one loop, and no loop of thread-
+// dependent trip count before the pass (K1 stages its rows with trip counts
+// written out on this route). Biases and head vectors are read from global
+// memory, so shared memory does not grow with H.
 #pragma once
 
 #include "common.cuh"
@@ -126,9 +137,9 @@ constexpr int PRODUCER_REGS = 24;
 constexpr size_t SMEM_LIMIT = 232448;                // per block, after opt-in
 constexpr int BAR_CONSUMERS = 3;                     // ids 1, 2: one per warpgroup
 
-// The wide path (H = 384 or 512): the output columns of one chunk of a
-// layer, and the weight stage of one chunk.
-constexpr int NCW = 32;
+// The wide path (H = 384 or 512): the output columns of one weight stage
+// (two stages per 64 K rows of a 256-column chunk), and its bytes.
+constexpr int NCW = 128;
 constexpr uint32_t WIDE_STAGE_BYTES = uint32_t(KC) * NCW * 2;
 
 // The large route (H > 512): the widest output chunk of a layer (a 64 x 256
@@ -143,9 +154,10 @@ constexpr uint32_t LARGE_STAGE_BYTES = uint32_t(KC) * LNC * 2;
 constexpr int NA = 3;
 constexpr int LARGE_RING_META = (2 * NA + 1) * 8;
 
-// The output columns of the large route's next chunk of a matmul that still
-// has `left` columns to produce: 256 while that many remain, then 128, then
-// 64 (H is a multiple of 128, the colour head's H / 2 of 64).
+// The output columns of the next chunk of a matmul (wide path and large
+// route) that still has `left` columns to produce: 256 while that many
+// remain, then 128, then 64 (H is a multiple of 128, the colour head's H / 2
+// of 64).
 __host__ __device__ inline int large_chunk(int left) {
   return left >= LNC ? LNC : left >= 128 ? 128 : 64;
 }
@@ -233,9 +245,10 @@ struct MlpLayout {
       if (route == ROUTE_WIDE) o += (H / KC) * A_CHUNK_BYTES;
       if (route == ROUTE_LARGE) o += NA * A_CHUNK_BYTES;
     }
-    prm = o;   // the large route reads global, and keeps its A rings' state here
-    if (route != ROUTE_LARGE) o += ((prm_offsets(H, n_layers).total * 2 + 15) & ~size_t(15));
-    else o += N_CONSUMERS * LARGE_RING_META;
+    prm = o;   // the wide and large routes read global; the large route
+               // keeps its A rings' state here
+    if (route == ROUTE_REGS) o += ((prm_offsets(H, n_layers).total * 2 + 15) & ~size_t(15));
+    if (route == ROUTE_LARGE) o += N_CONSUMERS * LARGE_RING_META;
     bars = o;   o += (2 * MAX_STAGES + 2) * 8;
     extra = o;  o += extra_bytes;
     total = o + 1024;                       // room to align the base
@@ -428,23 +441,25 @@ __device__ inline MlpSmem mlp_carve(unsigned char* raw, const MlpArgs& P) {
 }
 
 // Called by all N_THREADS threads first: copies the biases and the sigma /
-// rgb head vectors to shared memory (not on the large route, which reads
-// them from global memory), initialises the barriers.
+// rgb head vectors to shared memory (not on the wide and large routes, which
+// read them from global memory), initialises the barriers.
 template <int ROUTE>
 __device__ inline void mlp_setup(unsigned char* raw, const MlpArgs& P) {
   const MlpSmem S = mlp_carve<ROUTE>(raw, P);
-  if constexpr (ROUTE == ROUTE_LARGE) {
+  if constexpr (ROUTE != ROUTE_REGS) {
     if (threadIdx.x == 0) {
       for (int s = 0; s < MAX_STAGES; ++s) {
         mbar_init(S.bars + 8 * s, 1);                                // full
         mbar_init(S.bars + 8 * (MAX_STAGES + s), N_CONSUMER_THREADS / 32);  // empty
       }
-      for (int w = 0; w < N_CONSUMERS; ++w) {   // the A rings
-        for (int s = 0; s < NA; ++s) {
-          mbar_init(large_ring_bars(S, w) + 8 * s, 1);
-          mbar_init(large_ring_bars(S, w) + 8 * (NA + s), WG_THREADS / 32);
+      if constexpr (ROUTE == ROUTE_LARGE) {
+        for (int w = 0; w < N_CONSUMERS; ++w) {   // the A rings
+          for (int s = 0; s < NA; ++s) {
+            mbar_init(large_ring_bars(S, w) + 8 * s, 1);
+            mbar_init(large_ring_bars(S, w) + 8 * (NA + s), WG_THREADS / 32);
+          }
+          *large_ring_count(S, w) = 0;
         }
-        *large_ring_count(S, w) = 0;
       }
       *S.done = 0;
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -487,26 +502,20 @@ __host__ __device__ inline int trunk_chunks(int H, int EP, int n_layers) {
 __host__ __device__ inline int stream_chunks(int H, int EP, int EDP, int n_layers) {
   return trunk_chunks(H, EP, n_layers) + H / KC + EDP / KC;
 }
-// The wide path's stream: the same weights in 64 x NCW stages, each trunk
-// array cut into H / NCW column chunks and the colour head's into H / 2 / NCW.
-__host__ __device__ inline int wide_stream_chunks(int H, int EP, int EDP, int n_layers) {
-  return (H / NCW) * trunk_chunks(H, EP, n_layers) + (H / 2 / NCW) * ((H + EDP) / KC);
-}
 
 // The producer warpgroup: one thread refills each stage as soon as all
 // consumer warps have released it, cycling through the stream, until the
-// consumers are done; the other threads leave.
+// consumers are done; the other threads leave. Hidden widths 128 / 256; the
+// wide path and the large route: the specialisation and the overload below.
 template <int ROUTE>
 __device__ inline void mlp_produce(unsigned char* raw, const MlpArgs& P) {
-  constexpr bool WIDE = ROUTE != ROUTE_REGS;   // the large route: the overload below
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
   if (threadIdx.x != N_CONSUMER_THREADS) return;
   const MlpSmem S = mlp_carve<ROUTE>(raw, P);
-  const int n_trunk = WIDE ? 0 : trunk_chunks(P.H, P.EP, P.n_layers);
-  const int n_chunks = WIDE ? wide_stream_chunks(P.H, P.EP, P.EDP, P.n_layers)
-                                 : stream_chunks(P.H, P.EP, P.EDP, P.n_layers);
-  const uint32_t tbytes = WIDE ? WIDE_STAGE_BYTES : uint32_t(KC) * P.H * 2;
-  const uint32_t cbytes = WIDE ? WIDE_STAGE_BYTES : tbytes / 2;
+  const int n_trunk = trunk_chunks(P.H, P.EP, P.n_layers);
+  const int n_chunks = stream_chunks(P.H, P.EP, P.EDP, P.n_layers);
+  const uint32_t tbytes = uint32_t(KC) * P.H * 2;
+  const uint32_t cbytes = tbytes / 2;
   const char* src = reinterpret_cast<const char*>(P.staged);
   volatile int* done = S.done;
   int c = 0, s = 0;
@@ -530,13 +539,61 @@ __device__ inline void mlp_produce(unsigned char* raw, const MlpArgs& P) {
   }
 }
 
+// The wide path's producer: the same ring, each slot WIDE_STAGE_BYTES apart,
+// on stage_weights' wide stream: per matmul, per output chunk of
+// large_chunk widths, per array, per 64 K rows, the chunk's columns in
+// stages of at most NCW (two per 64 K rows of a 256-column chunk). Matmul m
+// is layer 0 (K = EP), the trunk's layers (H, or H + EP at the skip), the
+// feature layer (H) and, at m = last, the colour head (K = H + EDP, H / 2
+// columns).
+template <>
+__device__ inline void mlp_produce<ROUTE_WIDE>(unsigned char* raw, const MlpArgs& P) {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+  if (threadIdx.x != N_CONSUMER_THREADS) return;
+  const MlpSmem S = mlp_carve<ROUTE_WIDE>(raw, P);
+  const char* src = reinterpret_cast<const char*>(P.staged);
+  volatile int* done = S.done;
+  const int last = P.n_layers + 1;
+  int m = 0, n = 0, k = 0, h = 0, s = 0;
+  uint32_t off = 0, ph = 0;
+  for (;;) {
+    const uint32_t empty = S.bars + 8 * (MAX_STAGES + s);
+    if (!mbar_try_wait(empty, ph ^ 1)) {
+      const long long t0 = clock64();
+      while (!mbar_try_wait(empty, ph ^ 1)) {
+        if (*done) return;
+        if (clock64() - t0 > WAIT_LIMIT_CYCLES) __trap();
+      }
+    }
+    const int N = m == last ? P.H / 2 : P.H;
+    const int K = m == 0 ? P.EP : m == last ? P.H + P.EDP
+                : m == P.skip_pos ? P.H + P.EP : P.H;
+    const int nc = large_chunk(N - n), sw = nc < NCW ? nc : NCW;
+    const uint32_t bytes = uint32_t(sw) * (KC * 2);
+    const uint32_t full = S.bars + 8 * s;
+    mbar_expect_tx(full, bytes);
+    bulk_load(S.ring + s * WIDE_STAGE_BYTES, src + off, bytes, full);
+    off += bytes;
+    if ((h += sw) == nc) {
+      h = 0;
+      if ((k += KC) == K) {
+        k = 0;
+        if ((n += nc) == N) {
+          n = 0;
+          if (++m > last) { m = 0; off = 0; }
+        }
+      }
+    }
+    if (++s == P.NS) { s = 0; ph ^= 1; }
+  }
+}
+
 // The large route's producer: the same ring, in stages of 64 K rows x the
 // output chunk's columns (stage_weights' large stream: per matmul, per
 // chunk of large_chunk widths, the K / 64 stages of its arrays), each slot
-// LARGE_STAGE_BYTES apart. Matmul m is layer 0 (K = EP), the trunk's layers
-// (H, or H + EP at the skip), the feature layer (H) and, at m = last, the
-// colour head (K = H + EDP, H / 2 columns). The overload for the large
-// route's arguments; the kernels call mlp_produce<R>(smem, P) for all.
+// LARGE_STAGE_BYTES apart, the matmuls as on the wide path. The overload for
+// the large route's arguments; the kernels call mlp_produce<R>(smem, P) for
+// all.
 template <int ROUTE>
 __device__ inline void mlp_produce(unsigned char* raw, const LargeMlpArgs& P) {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
@@ -779,169 +836,6 @@ __device__ __forceinline__ void mlp_pass(const MlpArgs& P, const MlpSmem& S, int
       const float b = __bfloat162float(prm[o.bc2 + c]);
       out[r * 4 + c] = rgb[c][0] + b;
       out[(r + 8) * 4 + c] = rgb[c][1] + b;
-    }
-  }
-}
-
-// ---- the wide path: one warpgroup's 64 rows at H = 384 or 512 ----
-
-// acc (64 x NCW) = A0 (64 x 64 n0, shared at a0) @ W + A1 (64 x 64 n1, shared
-// at a1) @ W', the n0 + n1 weight stages of one output chunk taken from the
-// ring in order (n0 + n1 >= 1, both warp-uniform).
-__device__ __forceinline__ void mma_wide_chunk(float* acc, uint32_t a0, int n0,
-                                               uint32_t a1, int n1, Pipe& P) {
-  wgmma_fence();
-  int prev = -1, scale = 0;
-  for (int c = 0; c < n0; ++c) {
-    int st;
-    const uint64_t db = sdesc(P.acquire(st));
-    const uint64_t da = sdesc(a0 + c * A_CHUNK_BYTES);
-#pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      Wgmma<NCW>::ss(acc, da + 2 * kk, db + 2 * kk, scale);
-      scale = 1;
-    }
-    wgmma_commit();
-    if (c > 0) {
-      wgmma_wait<1>();
-      P.release(prev);
-    }
-    prev = st;
-  }
-  for (int c = 0; c < n1; ++c) {
-    int st;
-    const uint64_t db = sdesc(P.acquire(st));
-    const uint64_t da = sdesc(a1 + c * A_CHUNK_BYTES);
-#pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      Wgmma<NCW>::ss(acc, da + 2 * kk, db + 2 * kk, scale);
-      scale = 1;
-    }
-    wgmma_commit();
-    if (n0 > 0 || c > 0) {
-      wgmma_wait<1>();
-      P.release(prev);
-    }
-    prev = st;
-  }
-  wgmma_wait<0>();
-  P.release(prev);
-  fence_regs<NCW / 2>(acc);
-}
-
-// One wide layer: for each of the NCH output chunks c, held[c] =
-// bf16(act(A @ W[:, chunk c] + bias)) in the epilogue's register layout.
-template <bool RELU, int NCH>
-__device__ __forceinline__ void wide_layer(uint32_t (&held)[NCH][NCW / 4], uint32_t a0,
-                                           int n0, uint32_t a1, int n1,
-                                           const bf16* bias, Pipe& P) {
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-    float acc[NCW / 2];
-    mma_wide_chunk(acc, a0, n0, a1, n1, P);
-    epilogue<NCW, RELU>(acc, held[c], bias + NCW * c);
-  }
-}
-
-__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
-}
-
-// The held chunks over the warpgroup's activations at shared address act
-// (64 x H, swizzled), once every warp's wgmmas have read them; then visible
-// to wgmma. Rows r and r + 8 share their swizzle: unit j of a chunk's 64
-// columns sits at (j ^ (r % 8)) * 16 bytes in the row.
-template <int NCH>
-__device__ __forceinline__ void wide_store(uint32_t act,
-                                           const uint32_t (&held)[NCH][NCW / 4], int wg) {
-  const int lane = threadIdx.x & 31;
-  const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2), c2 = 2 * (lane & 3);
-  wg_sync(wg);
-  const uint32_t base = uint32_t(launder(int(act) + 2 * (r * KC + c2)));
-  const uint32_t rx = uint32_t(r & 7) << 4;
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) {
-#pragma unroll
-    for (int j = 0; j < NCW / 8; ++j) {
-      const uint32_t a = base + (NCW * c / KC) * A_CHUNK_BYTES +
-                         ((uint32_t(NCW * c % KC / 8 + j) << 4) ^ rx);
-      st_shared_b32(a, held[c][2 * j]);
-      st_shared_b32(a + 8 * KC * 2, held[c][2 * j + 1]);
-    }
-  }
-  fence_async_smem();
-  wg_sync(wg);
-}
-
-// mlp_pass for hidden width H = NCH * NCW (384 or 512): the same layers,
-// rounding points and outputs, with the activations in S.act[wg] and each
-// layer in NCH chunks of NCW columns.
-template <int NCH>
-__device__ __forceinline__ void mlp_pass_wide(const MlpArgs& P, const MlpSmem& S,
-                                              int wg, Pipe& pipe) {
-  constexpr int H = NCH * NCW, kh = H / KC;
-  const bf16* prm = S.prm;
-  const uint32_t enc = smem_addr(S.enc[wg]), ed = smem_addr(S.ed[wg]);
-  const uint32_t act = smem_addr(S.act[wg]);
-  const int ke = __shfl_sync(0xffffffffu, P.EP / KC, 0);
-  const int kd = __shfl_sync(0xffffffffu, P.EDP / KC, 0);
-  const int n_layers = __shfl_sync(0xffffffffu, P.n_layers, 0);
-  const int skip = __shfl_sync(0xffffffffu, P.skip_pos, 0);
-  uint32_t held[NCH][NCW / 4];
-  wide_layer<true, NCH>(held, enc, ke, 0, 0, prm + prm_offsets(H, n_layers).b0, pipe);
-  wide_store<NCH>(act, held, wg);
-  for (int l = 1; l < n_layers; ++l) {
-    const bool is_skip = l == skip;
-    const PrmOffsets o = prm_offsets(H, n_layers);
-    wide_layer<true, NCH>(held, act, kh, enc, is_skip ? ke : 0,
-                          prm + (is_skip ? o.bskip : o.b_mid + H * (l - 1 - (l > skip))),
-                          pipe);
-    wide_store<NCH>(act, held, wg);
-  }
-  const PrmOffsets o = prm_offsets(H, n_layers);
-  const int lane = threadIdx.x & 31;
-  const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
-  float* out = S.out[wg];
-  {
-    // sigma from the last trunk activation, still held in registers
-    float sg0 = 0.0f, sg1 = 0.0f;
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-      float a, b;
-      row_dots<NCW>(held[c], prm + o.w_sig + NCW * c, a, b);
-      sg0 += a;
-      sg1 += b;
-    }
-    if ((lane & 3) == 0) {
-      const float bs = __bfloat162float(prm[o.b_sig]);
-      out[r * 4 + 3] = sg0 + bs;
-      out[(r + 8) * 4 + 3] = sg1 + bs;
-    }
-  }
-  wide_layer<false, NCH>(held, act, kh, 0, 0, prm + o.b_feat, pipe);  // feature
-  wide_store<NCH>(act, held, wg);
-  // the colour head (width H/2) on [feature, enc_dir], one chunk at a time
-  float rgb[3][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
-#pragma unroll
-  for (int c = 0; c < NCH / 2; ++c) {
-    float acc[NCW / 2];
-    uint32_t hc[NCW / 4];
-    mma_wide_chunk(acc, act, kh, ed, kd, pipe);
-    epilogue<NCW, true>(acc, hc, prm + o.bc1 + NCW * c);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      float a, b;
-      row_dots<NCW>(hc, prm + o.wc2t + k * (H / 2) + NCW * c, a, b);
-      rgb[k][0] += a;
-      rgb[k][1] += b;
-    }
-  }
-  if ((lane & 3) == 0) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const float b = __bfloat162float(prm[o.bc2 + k]);
-      out[r * 4 + k] = rgb[k][0] + b;
-      out[(r + 8) * 4 + k] = rgb[k][1] + b;
     }
   }
 }
@@ -1251,6 +1145,254 @@ __device__ inline void mlp_pass_large(const LargeMlpArgs& P, const MlpSmem& S,
   *count = A.issued;   // the same value from every thread; read after wg_sync
 }
 
+// ---- the wide path: one warpgroup's 64 rows at H = 384 or 512 ----
+
+// acc (64 x N, its first N / 2 registers) = A0 (64 x 64 n0, shared at a0) @
+// W + A1 (64 x 64 n1, shared at a1) @ W', the chunk's weight stages taken
+// from the ring in order: per 64 K rows, one stage of each NCW columns of
+// the chunk (N = 256: two, an m64n128k16 product into each half of acc).
+// Each stage is one wgmma group, and a stage is released once the group
+// after it is issued and its own is done, so two groups are in flight. The
+// first 64 K rows are peeled (ss0: acc written, not read), so that no value
+// flows into acc from an earlier chunk (n0, n1 warp-uniform, n0 + n1 >= 1).
+template <int N>
+__device__ __forceinline__ void mma_wide_chunk(float* acc, uint32_t a0, int n0, uint32_t a1,
+                                               int n1, Pipe& P) {
+  constexpr int SW = N < NCW ? N : NCW, NH = N / SW;
+  wgmma_fence();
+  int st, prev;
+  {
+    const uint64_t da = sdesc(n0 > 0 ? a0 : a1);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      const uint64_t db = sdesc(P.acquire(st));
+      Wgmma<SW>::ss0(acc + h * (SW / 2), da, db);
+#pragma unroll
+      for (int kk = 1; kk < KC / 16; ++kk)
+        Wgmma<SW>::ss(acc + h * (SW / 2), da + 2 * kk, db + 2 * kk, 1);
+      wgmma_commit();
+      if (h > 0) {
+        wgmma_wait<1>();
+        P.release(prev);
+      }
+      prev = st;
+    }
+  }
+  for (int c = 1; c < n0 + n1; ++c) {
+    const uint64_t da =
+        sdesc(c < n0 ? a0 + c * A_CHUNK_BYTES : a1 + (c - n0) * A_CHUNK_BYTES);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      const uint64_t db = sdesc(P.acquire(st));
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk)
+        Wgmma<SW>::ss(acc + h * (SW / 2), da + 2 * kk, db + 2 * kk, 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      P.release(prev);
+      prev = st;
+    }
+  }
+  wgmma_wait<0>();
+  P.release(prev);
+  fence_regs<N / 2>(acc);
+}
+
+// Columns [32 m, 32 m + 32) of acc + bias, relu'd if relu, as bf16 16-byte
+// units: after the quad's transpose (large_store's), lane q holds unit
+// 4 m + q of row r in u[0..3] and of row r + 8 in u[4..7].
+__device__ __forceinline__ void wide_units(const float* acc, const bf16* bias, int m,
+                                           bool relu, uint32_t* u) {
+  uint32_t a[4], b[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) large_pack(acc, bias, 4 * m + i, relu, a[i], b[i]);
+  quad_transpose(a);
+  quad_transpose(b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    u[i] = a[i];
+    u[4 + i] = b[i];
+  }
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, const uint32_t* v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]) : "memory");
+}
+
+// The units u of wide_units for the layer's 8-column group g (columns 8 g to
+// 8 g + 7) of rows r and r + 8, into the warpgroup's activations at shared
+// address act (unit g % 8 of row r's 64-column block at (g % 8) ^ (r % 8)).
+__device__ __forceinline__ void st_unit(uint32_t act, int g, const uint32_t* u) {
+  const int lane = threadIdx.x & 31;
+  const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const uint32_t p = act + (g >> 3) * A_CHUNK_BYTES + r * (KC * 2) + (((g & 7) ^ (r & 7)) << 4);
+  st_shared_v4(p, u);
+  st_shared_v4(p + 8 * KC * 2, u + 4);
+}
+
+// The end of a wide layer: once every warp's products have read act (the
+// warpgroup's barrier), the parked first chunk (LNC columns) and the
+// epilogue of the last (N columns in acc, from column LNC) over act; then
+// visible to wgmma.
+template <int N>
+__device__ __forceinline__ void wide_store(uint32_t act, const uint32_t (&park)[LNC / 32][8],
+                                           const float* acc, const bf16* bias, bool relu,
+                                           int wg) {
+  static_assert(N % 64 == 0, "the stores go in pairs of 32-column blocks");
+  const int q = threadIdx.x & 3;
+  // odd rows store their pair partner's units first, so that rows r and
+  // r + 1 of a store's quarter warp fill all 32 banks, not the same 16
+  const int odd = (threadIdx.x >> 2) & 1;
+  wg_sync(wg);
+#pragma unroll
+  for (int m = 0; m < LNC / 32; m += 2) {
+    uint32_t x[8], y[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      x[i] = odd ? park[m + 1][i] : park[m][i];
+      y[i] = odd ? park[m][i] : park[m + 1][i];
+    }
+    st_unit(act, 4 * (m + odd) + q, x);
+    st_unit(act, 4 * (m + 1 - odd) + q, y);
+  }
+#pragma unroll
+  for (int m = 0; m < N / 32; m += 2) {
+    uint32_t u[8], v[8], x[8], y[8];
+    wide_units(acc, bias + LNC, m, relu, u);
+    wide_units(acc, bias + LNC, m + 1, relu, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      x[i] = odd ? v[i] : u[i];
+      y[i] = odd ? u[i] : v[i];
+    }
+    st_unit(act, LNC / 8 + 4 * (m + odd) + q, x);
+    st_unit(act, LNC / 8 + 4 * (m + 1 - odd) + q, y);
+  }
+  fence_async_smem();
+  wg_sync(wg);
+}
+
+// sigma's row dots on the wide path: rows r and r + 8 of the H columns of
+// act (shared, swizzled) dotted with w, fp32, summed as large_row_dots sums
+// them (per 32 columns row_dots' steps, then the blocks in column order),
+// with every block's loads issued before the first shuffle.
+template <int H>
+__device__ __forceinline__ void wide_sigma(const bf16* act, const bf16* w, float& s0,
+                                           float& s1) {
+  const int lane = threadIdx.x & 31;
+  const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2), c2 = 2 * (lane & 3);
+  const bf16* row = act + r * KC + c2;
+  float d0[H / 32], d1[H / 32];
+#pragma unroll
+  for (int b = 0; b < H / 32; ++b) {
+    d0[b] = d1[b] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = 32 * b + 8 * j;
+      const bf16* p = row + (col / KC) * (WG_ROWS * KC) + ((((col % KC) >> 3) ^ (r & 7)) << 3);
+      const float2 a = unpack_bf16(*reinterpret_cast<const unsigned int*>(p));
+      const float2 c = unpack_bf16(*reinterpret_cast<const unsigned int*>(p + 8 * KC));
+      const float2 ww =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + col + c2));
+      d0[b] = fmaf(a.y, ww.y, fmaf(a.x, ww.x, d0[b]));
+      d1[b] = fmaf(c.y, ww.y, fmaf(c.x, ww.x, d1[b]));
+    }
+  }
+  s0 = s1 = 0.0f;
+#pragma unroll
+  for (int b = 0; b < H / 32; ++b) {
+#pragma unroll
+    for (int m = 1; m < 4; m <<= 1) {
+      d0[b] += __shfl_xor_sync(0xffffffffu, d0[b], m);
+      d1[b] += __shfl_xor_sync(0xffffffffu, d1[b], m);
+    }
+    s0 += d0[b];
+    s1 += d1[b];
+  }
+}
+
+// The colour head's columns [n, n + N) in acc: bf16(relu(acc + bc1)) dotted
+// with wc2t's three rows (stride half), per 32 columns (row_dots' steps),
+// added to rgb.
+template <int N>
+__device__ __forceinline__ void wide_head_dots(const float* acc, const bf16* bc1,
+                                               const bf16* wc2t, int half, int n,
+                                               float (&rgb)[3][2]) {
+#pragma unroll
+  for (int m = 0; m < N / 32; ++m) {
+    uint32_t hc[8];
+    epilogue<32, true>(acc + 16 * m, hc, bc1 + n + 32 * m);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float a, b;
+      row_dots<32>(hc, wc2t + k * half + n + 32 * m, a, b);
+      rgb[k][0] += a;
+      rgb[k][1] += b;
+    }
+  }
+}
+
+// mlp_pass for hidden width H = 384 or 512: the same layers, rounding points
+// and outputs, with the activations in S.act[wg]; each layer in a chunk of
+// LNC columns, parked in registers, and a last chunk of H - LNC; the colour
+// head in one chunk of 256, or 128 and 64.
+template <int H>
+__device__ __forceinline__ void mlp_pass_wide(const MlpArgs& P, const MlpSmem& S, int wg,
+                                              Pipe& pipe) {
+  constexpr int kh = H / KC, C1 = H - LNC;
+  constexpr int D0 = H / 2 >= LNC ? LNC : 128, D1 = H / 2 - D0;
+  const uint32_t enc = smem_addr(S.enc[wg]), ed = smem_addr(S.ed[wg]);
+  const uint32_t act = smem_addr(S.act[wg]);
+  const int ke = __shfl_sync(0xffffffffu, P.EP / KC, 0);
+  const int kd = __shfl_sync(0xffffffffu, P.EDP / KC, 0);
+  const int n_layers = __shfl_sync(0xffffffffu, P.n_layers, 0);
+  const int skip = __shfl_sync(0xffffffffu, P.skip_pos, 0);
+  const int lane = threadIdx.x & 31;
+  const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  float* res = S.out[wg];
+  float acc[LNC / 2];
+  uint32_t park[LNC / 32][8];
+  // the trunk, then the feature layer (l = n_layers, no activation)
+  for (int l = 0; l <= n_layers; ++l) {
+    const bool first = l == 0, feat = l == n_layers;
+    const bf16* bias = first ? P.p[B0]
+                       : feat ? P.p[B_FEAT]
+                       : l == skip ? P.p[BSKIP]
+                                   : P.p[B_MID] + H * (l - 1 - (l > skip));
+    const uint32_t a0 = first ? enc : act;
+    const int n0 = first ? ke : kh, n1 = l == skip ? ke : 0;
+    if (feat) {
+      // sigma from the last trunk activation, in act since the last layer's
+      // barrier (the four lanes of a quad store the same value)
+      float sg0 = 0.0f, sg1 = 0.0f;
+      wide_sigma<H>(S.act[wg], P.p[W_SIG], sg0, sg1);
+      const float bs = __bfloat162float(P.p[B_SIG][0]);
+      res[r * 4 + 3] = sg0 + bs;
+      res[(r + 8) * 4 + 3] = sg1 + bs;
+    }
+    mma_wide_chunk<LNC>(acc, a0, n0, enc, n1, pipe);
+#pragma unroll
+    for (int m = 0; m < LNC / 32; ++m) wide_units(acc, bias, m, !feat, park[m]);
+    mma_wide_chunk<C1>(acc, a0, n0, enc, n1, pipe);
+    wide_store<C1>(act, park, acc, bias, !feat, wg);
+  }
+  // the colour head (width H / 2) on [feature, enc_dir]
+  float rgb[3][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
+  mma_wide_chunk<D0>(acc, act, kh, ed, kd, pipe);
+  wide_head_dots<D0>(acc, P.p[BC1], P.p[WC2T], H / 2, 0, rgb);
+  if constexpr (D1 > 0) {
+    mma_wide_chunk<D1>(acc, act, kh, ed, kd, pipe);
+    wide_head_dots<D1>(acc, P.p[BC1], P.p[WC2T], H / 2, D0, rgb);
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float b = __bfloat162float(P.p[BC2][k]);
+    res[r * 4 + k] = rgb[k][0] + b;
+    res[(r + 8) * 4 + k] = rgb[k][1] + b;
+  }
+}
+
 // The pass of a kernel instantiated for hidden width H (0: the large route).
 template <int H>
 __device__ __forceinline__ void mlp_pass_any(const MlpArgs& P, const MlpSmem& S,
@@ -1258,7 +1400,7 @@ __device__ __forceinline__ void mlp_pass_any(const MlpArgs& P, const MlpSmem& S,
   if constexpr (H == 0)
     mlp_pass_large(static_cast<const LargeMlpArgs&>(P), S, wg, pipe);
   else if constexpr (H > 256)
-    mlp_pass_wide<H / NCW>(P, S, wg, pipe);
+    mlp_pass_wide<H>(P, S, wg, pipe);
   else
     mlp_pass<H>(P, S, wg, pipe);
 }

@@ -9,12 +9,12 @@ L2 once per ``TILE_M`` = 128 rows; a producer warp streams them into shared
 memory as one bulk copy per stage, from the buffer :func:`stage_weights`
 lays out (design notes in ``csrc/mlp_tile.cuh``). Hidden activations stay
 in registers between layers at hidden widths 128 and 256; at 384 and 512
-they sit in shared memory and each layer runs in chunks of 32 columns; at
-every wider multiple of 128 (the large route, one instantiation for all)
-they sit in a ping-pong pair of global buffers per warpgroup, the scratch
-:func:`large_scratch` allocates per call, each layer runs in output chunks
-of up to 256 columns (:func:`large_chunks`) and bulk copies bring its input
-into shared memory a 64-column slice at a time. The kernels take every
+(the wide path) they sit in shared memory; at every wider multiple of 128
+(the large route, one instantiation for all) they sit in a ping-pong pair
+of global buffers per warpgroup, the scratch :func:`large_scratch`
+allocates per call, and bulk copies bring a layer's input into shared
+memory a 64-column slice at a time. Both run each layer in output chunks
+of up to 256 columns (:func:`large_chunks`). The kernels take every
 width JAX's ``fusable`` takes.
 
 Rounding points are those of the TPU kernel: bf16 operands, fp32
@@ -42,7 +42,7 @@ from nerf_sandbox_tpu_torch.ops import cuda_build
 
 TILE_M = 128                 # rows per weight fetch (csrc/mlp_tile.cuh)
 KC = 64                      # K rows of one weight stage (csrc/mlp_tile.cuh)
-NCW = 32                     # output columns of a wide stage (csrc/mlp_tile.cuh)
+NCW = 128                    # output columns of a wide stage (csrc/mlp_tile.cuh)
 LNC = 256                    # widest output chunk of the large route (csrc/mlp_tile.cuh)
 N_CONSUMERS = 2              # consumer warpgroups of a block (csrc/mlp_tile.cuh)
 WG_ROWS = 64                 # rows of one consumer warpgroup (csrc/mlp_tile.cuh)
@@ -178,21 +178,25 @@ def _swizzle_rows(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(C, N, 8, 8).gather(2, idx).reshape(C, N, KC)
 
 
-def _stage_array(w: torch.Tensor) -> torch.Tensor:
+def _stage_array(w: torch.Tensor, cols: int = 0) -> torch.Tensor:
     """(K, N) → K zero-padded to a multiple of 64, cut into 64-row chunks,
-    each transposed to N rows of 64 K values (K-major) and swizzled; flat."""
+    each cut into parts of ``cols`` columns (0, or a width of N or more:
+    whole), each part transposed to its columns' rows of 64 K values
+    (K-major) and swizzled; flat, in (chunk, part) order."""
     K, N = w.shape
     kp = -(-K // KC) * KC
+    sw = N if not cols or cols > N else cols
     wp = torch.zeros((kp, N), dtype=torch.bfloat16, device=w.device)
     wp[:K] = w
-    chunks = wp.reshape(kp // KC, KC, N).transpose(1, 2)
-    return _swizzle_rows(chunks).reshape(-1)
+    parts = wp.reshape(kp // KC, KC, N // sw, sw).permute(0, 2, 3, 1)
+    return _swizzle_rows(parts.reshape(-1, sw, KC)).reshape(-1)
 
 
 def large_chunks(n_out: int) -> list:
-    """The large route's output chunks of a matmul ``n_out`` columns wide,
-    in order: 256 columns while that many remain, then 128, then 64
-    (``csrc/mlp_tile.cuh:large_chunk``; 640 → 256, 256, 128, 320 → 256, 64)."""
+    """The output chunks of a matmul ``n_out`` columns wide on the wide path
+    and the large route, in order: 256 columns while that many remain, then
+    128, then 64 (``csrc/mlp_tile.cuh:large_chunk``; 384 → 256, 128, 192 →
+    128, 64; 640 → 256, 256, 128, 320 → 256, 64)."""
     widths = []
     while n_out > 0:
         widths.append(LNC if n_out >= LNC else 128 if n_out >= 128 else 64)
@@ -204,24 +208,22 @@ def stage_weights(cfg: NeRFConfig, views: dict) -> torch.Tensor:
     """The weight stream of the CUDA kernels, in the order their stages use
     it, each stage one contiguous bulk copy in the layout wgmma reads
     (:func:`_stage_array`). Hidden width 128 / 256: each array of
-    :func:`_stream_layers` whole, stages of 64 K rows x N. 384 and 512 (the
-    wide path): per matmul and per chunk of ``NCW`` output columns, the
-    chunk's columns of each of its arrays, stages of 64 x NCW. Wider (the
-    large route): the same per chunk of :func:`large_chunks`, stages of 64
-    x the chunk's width. → a flat bf16 tensor (stages back to back)."""
+    :func:`_stream_layers` whole, stages of 64 K rows x N. Wider: per matmul
+    and per output chunk of :func:`large_chunks`, the chunk's columns of
+    each of its arrays, per 64 K rows in stages of ``NCW`` columns (384 and
+    512, the wide path: two per 64 K rows of a 256-column chunk) or of the
+    chunk's width (the large route). → a flat bf16 tensor (stages back to
+    back)."""
     layers = _stream_layers(cfg, views)
     if cfg.hidden_dim <= 256:
-        parts = [_stage_array(w) for layer in layers for w in layer]
-    elif not is_large(cfg):
-        parts = [_stage_array(w[:, n:n + NCW]) for layer in layers
-                 for n in range(0, layer[0].shape[1], NCW) for w in layer]
-    else:
-        parts = []
-        for layer in layers:
-            n = 0
-            for nc in large_chunks(layer[0].shape[1]):
-                parts += [_stage_array(w[:, n:n + nc]) for w in layer]
-                n += nc
+        return torch.cat([_stage_array(w) for layer in layers for w in layer])
+    cols = 0 if is_large(cfg) else NCW
+    parts = []
+    for layer in layers:
+        n = 0
+        for nc in large_chunks(layer[0].shape[1]):
+            parts += [_stage_array(w[:, n:n + nc], cols) for w in layer]
+            n += nc
     return torch.cat(parts)
 
 

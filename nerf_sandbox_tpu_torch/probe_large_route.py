@@ -1,20 +1,22 @@
-"""What holds the large route of K1 back? Time it with one part taken out at a time.
+"""What holds the large route (or the wide path) of K1 back? Time it with one part taken out at a time.
 
-    python -m nerf_sandbox_tpu_torch.probe_large_route
+    python -m nerf_sandbox_tpu_torch.probe_large_route [--route wide]
 
-Copies ``csrc/`` under ``build/`` once per variant of :data:`VARIANTS`, each
-with its edits of ``mlp_tile.cuh``, builds K1 from every copy at once
+Copies ``csrc/`` under ``build/`` once per variant of :data:`VARIANTS` (with
+``--route wide``: :data:`WIDE_VARIANTS`), each with its edits of
+``mlp_tile.cuh``, builds K1 from every copy at once
 (``compare_builds.build_variant``) and times them on one card in turns (the
 variants in order, then in reverse; each a median of 5 CUDA-event runs) at
-2^20 rows of 8x640 and 8x1024 skip-4 MLPs with seeded weights, printing each
-time, its share of the bound, and whether its output equals the unedited
-build's. The variants that take a part out compute wrong outputs on
-purpose: the time a part costs is the unedited time less theirs. Needs a
-CUDA card and nvcc.
+2^20 rows of 8x640 and 8x1024 (wide: 8x384 and 8x512) skip-4 MLPs with
+seeded weights, printing each time, its share of the bound, and whether its
+output equals the unedited build's. The variants that take a part out
+compute wrong outputs on purpose: the time a part costs is the unedited
+time less theirs. Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import shutil
 import subprocess
@@ -83,9 +85,68 @@ VARIANTS = {
 }
 
 
-def variant_text(tile: str, name: str) -> str:
-    """csrc/mlp_tile.cuh with variant ``name``'s edits."""
-    for old, new in VARIANTS[name]:
+_PAIR_STORES = """\
+  // odd rows store their pair partner's units first, so that rows r and
+  // r + 1 of a store's quarter warp fill all 32 banks, not the same 16
+  const int odd = (threadIdx.x >> 2) & 1;
+  wg_sync(wg);
+#pragma unroll
+  for (int m = 0; m < LNC / 32; m += 2) {
+    uint32_t x[8], y[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      x[i] = odd ? park[m + 1][i] : park[m][i];
+      y[i] = odd ? park[m][i] : park[m + 1][i];
+    }
+    st_unit(act, 4 * (m + odd) + q, x);
+    st_unit(act, 4 * (m + 1 - odd) + q, y);
+  }
+#pragma unroll
+  for (int m = 0; m < N / 32; m += 2) {
+    uint32_t u[8], v[8], x[8], y[8];
+    wide_units(acc, bias + LNC, m, relu, u);
+    wide_units(acc, bias + LNC, m + 1, relu, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      x[i] = odd ? v[i] : u[i];
+      y[i] = odd ? u[i] : v[i];
+    }
+    st_unit(act, LNC / 8 + 4 * (m + odd) + q, x);
+    st_unit(act, LNC / 8 + 4 * (m + 1 - odd) + q, y);
+  }
+"""
+
+_PLAIN_STORES = """\
+  wg_sync(wg);
+#pragma unroll
+  for (int m = 0; m < LNC / 32; ++m) st_unit(act, 4 * m + q, park[m]);
+#pragma unroll
+  for (int m = 0; m < N / 32; ++m) {
+    uint32_t u[8];
+    wide_units(acc, bias + LNC, m, relu, u);
+    st_unit(act, LNC / 8 + 4 * m + q, u);
+  }
+"""
+
+# the wide path's variants (--route wide), as VARIANTS
+WIDE_VARIANTS = {
+    "as is": [],
+    # the layer-end stores keep their packing and transposes, and store nothing
+    "no layer-end stores": [(
+        "  st_shared_v4(p, u);\n  st_shared_v4(p + 8 * KC * 2, u + 4);\n",
+        "  if ((u[0] & u[7]) == 0x7fc17fc1u) st_shared_v4(p, u);\n")],
+    # no sigma row dots read back from act at the feature layer
+    "no sigma read-back": [(
+        "      wide_sigma<H>(S.act[wg], P.p[W_SIG], sg0, sg1);\n", "")],
+    # the same stores in column order: rows r and r + 1 of a quarter warp
+    # hit the same 16 banks
+    "plain stores": [(_PAIR_STORES, _PLAIN_STORES)],
+}
+
+
+def variant_text(tile: str, name: str, variants=VARIANTS) -> str:
+    """csrc/mlp_tile.cuh with the edits of ``variants[name]``."""
+    for old, new in variants[name]:
         if tile.count(old) != 1:
             raise RuntimeError(f"variant {name!r}: its text is not in "
                                f"csrc/mlp_tile.cuh once")
@@ -93,7 +154,11 @@ def variant_text(tile: str, name: str) -> str:
     return tile
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--route", choices=("large", "wide"), default="large")
+    wide = ap.parse_args(argv).route == "wide"
+    variants = WIDE_VARIANTS if wide else VARIANTS
     if not torch.cuda.is_available():
         print("probe_large_route: needs a CUDA card", file=sys.stderr)
         return 2
@@ -106,21 +171,23 @@ def main() -> int:
     csrc = ROOT / "nerf_sandbox_tpu_torch" / "csrc"
     tile = (csrc / "mlp_tile.cuh").read_text()
     dirs = {}
-    for i, name in enumerate(VARIANTS):
-        d = ROOT / "build" / f"probe_large_{i}" / "csrc"
+    route = "wide" if wide else "large"
+    for i, name in enumerate(variants):
+        d = ROOT / "build" / f"probe_{route}_{i}" / "csrc"
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(csrc, d)
-        (d / "mlp_tile.cuh").write_text(variant_text(tile, name))
-        dirs[name] = (d, f"probe_large_{i}")
+        (d / "mlp_tile.cuh").write_text(variant_text(tile, name, variants))
+        dirs[name] = (d, f"probe_{route}_{i}")
     with ThreadPoolExecutor(len(dirs)) as pool:   # one compiler each, all at once
         libs = pool.map(lambda dt: build_variant(*dt, ("fused_mlp",))["fused_mlp"],
                         dirs.values())
     fns = {}
     for name, lib in zip(dirs, libs):
-        f = lib.nerf_fused_mlp_large
+        f = lib.nerf_fused_mlp if wide else lib.nerf_fused_mlp_large
         f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong),
                                                ctypes.c_void_p]
-                      + [ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.c_int]
+                      + [ctypes.c_int] * 8
+                      + ([] if wide else [ctypes.c_void_p, ctypes.c_int])
                       + [ctypes.c_void_p] * 2)
         fns[name] = f
 
@@ -139,18 +206,19 @@ def main() -> int:
     def ptr(t):
         return ctypes.c_void_p(t.data_ptr())
 
-    for H in (640, 1024):
+    for H in (384, 512) if wide else (640, 1024):
         cfg = NeRFConfig(63, 27, 8, H, 4)
         pk = fm.pack_nerf_params(
             NeRFMLP(cfg, generator=torch.Generator().manual_seed(H), device=dev))
-        scratch, blocks = fm.large_scratch(cfg, dev)
+        scratch = [] if wide else fm.large_scratch(cfg, dev)
         ep_pad, ed_pad = fm._enc_pads(cfg)
         outs = {name: torch.empty((Q, 4), dtype=torch.float32, device=dev) for name in fns}
 
         def run(name):
             err = fns[name](ptr(ep), ptr(ed), ptr(pk.flat), fm.offsets_arg(pk),
                             ptr(pk.staged), Q, 63, 27, H, ep_pad, ed_pad, 8, 4,
-                            ptr(scratch), blocks, ptr(outs[name]), stream)
+                            *([] if wide else [ptr(scratch[0]), scratch[1]]),
+                            ptr(outs[name]), stream)
             if err:
                 raise RuntimeError(f"{name}: K1 launch: CUDA error {err}")
 
@@ -162,7 +230,7 @@ def main() -> int:
         for name, ts in times.items():
             ms = float(np.mean(ts))
             same = torch.equal(outs[name], outs["as is"])
-            print(f"[large route probe] K1 8x{H} at {Q} rows, {name}: "
+            print(f"[{route} route probe] K1 8x{H} at {Q} rows, {name}: "
                   f"{', '.join(f'{t:.3f}' for t in ts)} ms, mean {ms:.3f} ms = "
                   f"{100.0 * b_ms / ms:.1f}% of the {b_ms:.3f} ms bound; output "
                   f"{'equal to' if same else 'differs from'} the unedited build's | {card}",

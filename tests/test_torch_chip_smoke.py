@@ -1,9 +1,11 @@
 """``chip_smoke.py``'s reading of the kernels' ``-Xptxas -v`` reports, on the
 CPU: each kernel's registers and spills, the wgmma notes attributed to the
 kernel they name, readable names for K1, K2 and K5's instantiations, and the
-build check that fails on a spill anywhere and on serialized wgmmas at hidden
-width 128 or 256 and on the large route (above 512), not on the wide path. Also: the parts ``ops/cuda_build.py`` compiles K2 in
-are the parts that ``csrc/fused_raymarch.cu`` defines."""
+build check that fails on a spill anywhere and on serialized wgmmas in any
+instantiation (hidden width 128 / 256, the wide path at 384 / 512, the large
+route above 512). Also its byte counts (the large route's scratch, the wide
+path's shared-memory reads) and the parts ``ops/cuda_build.py`` compiles K2
+in, which must be the parts that ``csrc/fused_raymarch.cu`` defines."""
 
 import re
 import types
@@ -42,14 +44,12 @@ ARRIVE = ("C7519", "warpgroup.arrive is injected in around line 12 by compiler "
 
 
 def test_labels_name_the_instantiations():
-    assert cs.kernel_label(K1_256) == ("K1 fused_mlp<H=256>", False)
-    assert cs.kernel_label(K1_512) == ("K1 fused_mlp<H=512>", True)
-    assert cs.kernel_label(K2_KP_384) == (
-        "K2 fused_raymarch<kplanes, contract, H=384>", True)
-    assert cs.kernel_label(K5_X3) == ("K5 precision_dot<bf16x3>", None)
-    assert cs.kernel_label(K1_LARGE) == ("K1 fused_mlp<H>512, large route>", False)
-    assert cs.kernel_label(K2_IPE_LARGE) == (
-        "K2 fused_raymarch<ipe, H>512, large route>", False)
+    assert cs.kernel_label(K1_256) == "K1 fused_mlp<H=256>"
+    assert cs.kernel_label(K1_512) == "K1 fused_mlp<H=512>"
+    assert cs.kernel_label(K2_KP_384) == "K2 fused_raymarch<kplanes, contract, H=384>"
+    assert cs.kernel_label(K5_X3) == "K5 precision_dot<bf16x3>"
+    assert cs.kernel_label(K1_LARGE) == "K1 fused_mlp<H>512, large route>"
+    assert cs.kernel_label(K2_IPE_LARGE) == "K2 fused_raymarch<ipe, H>512, large route>"
 
 
 def test_entries_take_registers_spills_and_named_notes():
@@ -63,24 +63,32 @@ def test_entries_take_registers_spills_and_named_notes():
 
 @pytest.mark.parametrize("case", ["clean", "arrive_only", "wide_serialized",
                                   "narrow_serialized", "spill", "large_serialized",
-                                  "large_spill"])
+                                  "large_spill", "k2_wide_serialized"])
 def test_build_check(case, monkeypatch):
+    """Only a clean report and register-operand arrive notes (C7519) pass;
+    a serializing note fails at every width, the wide path's included."""
     entries = {"clean": {K1_256: (168, 0, []), K1_512: (168, 0, [])},
                "arrive_only": {K1_256: (168, 0, [ARRIVE]), K1_512: (168, 0, [ARRIVE])},
                "wide_serialized": {K1_256: (168, 0, []), K1_512: (168, 0, [SERIAL])},
                "narrow_serialized": {K1_256: (168, 0, [SERIAL]), K1_512: (168, 0, [])},
                "spill": {K1_256: (168, 0, []), K2_KP_384: (168, 4, [])},
                "large_serialized": {K1_256: (168, 0, []), K1_LARGE: (168, 0, [SERIAL])},
-               "large_spill": {K1_LARGE: (168, 0, []), K2_IPE_LARGE: (168, 8, [])}}[case]
+               "large_spill": {K1_LARGE: (168, 0, []), K2_IPE_LARGE: (168, 8, [])},
+               "k2_wide_serialized": {K1_512: (168, 0, [ARRIVE]),
+                                      K2_KP_384: (168, 0, [SERIAL])}}[case]
     fake = types.SimpleNamespace(SOURCES=("fused_mlp",),
                                  build_log=lambda src: _log(entries))
-    monkeypatch.setattr(cs, "print", lambda *a, **k: None, raising=False)
-    if case in ("narrow_serialized", "spill", "large_serialized", "large_spill"):
-        with pytest.raises(cs.PhaseError):
+    printed = []
+    monkeypatch.setattr(cs, "print", lambda *a, **k: printed.append(a), raising=False)
+    if case not in ("clean", "arrive_only"):
+        with pytest.raises(cs.PhaseError) as e:
             cs.build_notes(fake)
+        if "serialized" in case:
+            assert "serializes its wgmmas" in str(e.value)
+            assert any("serialized" in str(a) for a in printed)
         return
-    notes = cs.build_notes(fake)
-    assert bool(notes) == (case == "wide_serialized")
+    cs.build_notes(fake)
+    assert len(printed) == len(entries)
 
 
 @pytest.mark.parametrize("hidden,chunks_per_64_rows", [(640, 8 * 3 + 2),
@@ -119,6 +127,46 @@ def test_fetch_line_adds_the_large_routes_activation_reads(hidden, capsys):
         read = 16384 * 34 * 64 * 1024 * 2
         assert f"{read / 1e9:.3f} GB of activations read from scratch" in line
         assert f"= {(16.384e9 + read) / 10.0 / 1e9:.3f} TB/s;" in line
+
+
+@pytest.mark.parametrize("hidden,a_per_pass,b_per_pass", [
+    # per pass of 2 warpgroups: A = 64 rows x K x 2 B x stages per 64 K
+    # rows; B = K x N x 2 B. 8 layers, skip 4, EP = EDP = 64: K of the ten
+    # matmuls 64, H x 3, H + 64, H x 3, H, H + 64; the head H / 2 wide
+    (384, 2 * 128 * (64 * 3 + 8 * 384 * 3 + 64 * 3 + (384 + 64) * 2),
+     2 * 2 * (64 * 384 + 8 * 384 * 384 + 64 * 384 + (384 + 64) * 192)),
+    (512, 2 * 128 * (64 * 4 + 8 * 512 * 4 + 64 * 4 + (512 + 64) * 2),
+     2 * 2 * (64 * 512 + 8 * 512 * 512 + 64 * 512 + (512 + 64) * 256))])
+def test_wide_smem_bytes_count_each_stages_reads(hidden, a_per_pass, b_per_pass):
+    """The wide path's wgmma reads from shared memory: each warpgroup's A
+    once per stage (NCW = 128 columns of a chunk per 64 K rows: 384 = 256 +
+    128 takes 3 stages per 64 K rows, its head 192 = 128 + 64 two; 512 four,
+    its head two), every stage's B once per warpgroup."""
+    from nerf_sandbox_tpu_torch.models.mlp import NeRFConfig
+    cfg = NeRFConfig(63, 27, n_layers=8, hidden_dim=hidden, skip_pos=4)
+    assert cs.wide_smem_bytes(cfg, 1) == (a_per_pass, b_per_pass)
+    assert cs.wide_smem_bytes(cfg, 8192) == (8192 * a_per_pass, 8192 * b_per_pass)
+
+
+@pytest.mark.parametrize("hidden", [256, 512])
+def test_fetch_line_adds_the_wide_paths_shared_memory_reads(hidden, capsys):
+    """fetch_line on the wide path adds the bytes its wgmmas read from
+    shared memory and their rate, card-wide and per SM of the 132."""
+    import torch
+
+    from nerf_sandbox_tpu_torch.models.mlp import NeRFConfig
+    cfg = NeRFConfig(63, 27, n_layers=8, hidden_dim=hidden, skip_pos=4)
+    packed = types.SimpleNamespace(cfg=cfg, staged=torch.empty(1_000_000))
+    cs.fetch_line("t", 10.0, 2.5, 8192, packed, "card")
+    line = capsys.readouterr().out
+    assert "16.384 GB of weights from L2 in 10.000 ms = 1.638 TB/s" in line
+    if hidden == 256:
+        assert "shared memory" not in line
+    else:
+        a, b = cs.wide_smem_bytes(cfg, 8192)
+        assert f"{(a + b) / 1e9:.3f} GB read from shared memory by wgmma" in line
+        assert f"= {(a + b) / 10.0 / 1e9:.3f} TB/s, " in line
+        assert f"{(a + b) / 10.0 / 1e6 / 132:.1f} GB/s per SM" in line
 
 
 def test_k2_parts_match_the_source():

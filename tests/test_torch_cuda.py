@@ -114,10 +114,11 @@ WIDE = {"8x384": NeRFConfig(63, 27, n_layers=8, hidden_dim=384, skip_pos=4),
 @pytest.mark.parametrize("q", [1, 127, 129, 70000])
 def test_k1_wide_matches_plain(cuda, wname, q):
     """Hidden widths 384 and 512: the wide path (activations in shared
-    memory, layers in 32-column chunks); 640, 1024 and 1152: the large route
-    (activations in global scratch, output chunks of 256 columns; 640's
-    trunk and 1152's end on a 128-column chunk, their colour heads on a
-    64-column one)."""
+    memory, output chunks of 256 columns; 384's trunk ends on a 128-column
+    chunk, its colour head on a 64-column one); 640, 1024 and 1152: the
+    large route (activations in global scratch, output chunks of 256
+    columns; 640's trunk and 1152's end on a 128-column chunk, their colour
+    heads on a 64-column one)."""
     m = _model(WIDE[wname], 20, cuda)
     ep, ed = _enc(q, q + 1, cuda)
     before = fm.fused_nerf_apply.launches

@@ -202,38 +202,54 @@ def test_staged_weights_invert_to_views(name):
 
 @pytest.mark.parametrize("hidden", [384, 512])
 def test_wide_staged_weights_invert_to_layers(hidden):
-    """The wide path's stream: per matmul, per NCW-column chunk of its output,
-    the chunk's 64 x NCW stages of each of its arrays in K order. Taking it
-    apart stage by stage gives back every array of ``_stream_layers``, bit
-    for bit, and the stage count the kernel's producer cycles through."""
+    """The wide path's stream: per matmul, per output chunk of
+    ``large_chunks`` (256 columns, then a 128 or 64 tail), per array, per 64
+    K rows, the chunk's stages of 64 x NCW (two for a 256-column chunk, one
+    of 64 columns for a 64-column tail). Taking it apart stage by stage gives
+    back every array of ``_stream_layers``, bit for bit, and the stage count
+    the kernel's producer cycles through."""
     cfg = tmlp.NeRFConfig(63, 27, n_layers=4, hidden_dim=hidden, skip_pos=2)
     m = tmlp.NeRFMLP(cfg, generator=torch.Generator().manual_seed(6), device="cpu")
     packed = tfm.pack_nerf_params(m)
-    staged, kc, nc = packed.staged, tfm.KC, tfm.NCW
-    off = 0
-    layers = tfm._stream_layers(cfg, packed.views)
-    for layer in layers:
+    staged, kc, ncw = packed.staged, tfm.KC, tfm.NCW
+    off = stages = 0
+    for layer in tfm._stream_layers(cfg, packed.views):
         n_out = layer[0].shape[1]
         rebuilt = [torch.zeros((-(-w.shape[0] // kc) * kc, n_out), dtype=torch.bfloat16)
                    for w in layer]
-        for n in range(0, n_out, nc):            # chunk by chunk, in kernel order
+        n = 0
+        for nc in tfm.large_chunks(n_out):       # chunk by chunk, in kernel order
+            sw = min(nc, ncw)
             for r in rebuilt:
-                kp = r.shape[0]
-                stages = tfm._swizzle_rows(staged[off:off + kp * nc].reshape(kp // kc, nc, kc))
-                r[:, n:n + nc] = stages.transpose(1, 2).reshape(kp, nc)
-                off += kp * nc
+                for k in range(0, r.shape[0], kc):
+                    for h in range(n, n + nc, sw):
+                        st = tfm._swizzle_rows(staged[off:off + kc * sw].reshape(1, sw, kc))
+                        r[k:k + kc, h:h + sw] = st[0].T
+                        off += kc * sw
+                        stages += 1
+            n += nc
+        assert n == n_out
         for w, r in zip(layer, rebuilt):
             assert torch.equal(r[:w.shape[0]], w)
             assert not r[w.shape[0]:].float().any()
     assert off == staged.numel()
+    # the producer's walk (csrc/mlp_tile.cuh, mlp_produce<ROUTE_WIDE>): matmul K of EP,
+    # H, H + EP at the skip, H (feature), H + EDP (colour); per chunk K / 64
+    # steps of one stage per NCW columns
     ep, ed = tfm._enc_pads(cfg)
-    trunk = 2 * ep // kc + cfg.n_layers * hidden // kc
-    colour = (hidden + -(-ed // kc) * kc) // kc
-    assert staged.numel() == ((hidden // nc) * trunk + (hidden // 2 // nc) * colour) * kc * nc
-    # stage 0 is W0[0:64, 0:64] as 64 rows of 64 K values, swizzled
-    st = staged[:kc * nc].reshape(nc, 8, 8)
-    n, k = torch.meshgrid(torch.arange(nc), torch.arange(kc), indexing="ij")
-    assert torch.equal(st[n, (k // 8) ^ (n % 8), k % 8], packed.views["w0"][:kc, :nc].T)
+    edp = -(-ed // kc) * kc
+    ks = [ep] + [hidden + ep if l == cfg.skip_pos else hidden
+                 for l in range(1, cfg.n_layers)] + [hidden, hidden + edp]
+    widths = [hidden] * (cfg.n_layers + 1) + [hidden // 2]
+    assert stages == sum(k // kc * -(-c // ncw) for k, n in zip(ks, widths)
+                         for c in tfm.large_chunks(n))
+    # stages 0 and 1 are W0[0:64, 0:128] and W0[0:64, 128:256], each as 128
+    # rows of 64 K values, swizzled
+    n, k = torch.meshgrid(torch.arange(ncw), torch.arange(kc), indexing="ij")
+    for i in range(2):
+        st = staged[i * kc * ncw:(i + 1) * kc * ncw].reshape(ncw, 8, 8)
+        assert torch.equal(st[n, (k // 8) ^ (n % 8), k % 8],
+                           packed.views["w0"][:kc, i * ncw:(i + 1) * ncw].T)
 
 
 @pytest.mark.parametrize("hidden", [640, 1024, 1152])
@@ -295,6 +311,21 @@ def test_large_chunk_plan_has_its_tails(hidden, trunk, head):
     assert all(w in (64, 128, tfm.LNC) for w in trunk + head)
 
 
+@pytest.mark.parametrize("hidden,trunk,head", [
+    (384, [256, 128], [128, 64]),
+    (512, [256, 256], [256])])
+def test_wide_chunk_plan(hidden, trunk, head):
+    """The wide path's output chunks (``mlp_pass_wide``'s compile-time plan):
+    a first chunk of 256 columns, parked in registers, then a last of 256 or
+    128; the colour head in one chunk of 256, or 128 then 64. A chunk wider
+    than a stage's NCW columns takes two stages per 64 K rows."""
+    assert tfm.large_chunks(hidden) == trunk
+    assert tfm.large_chunks(hidden // 2) == head
+    assert trunk[0] == tfm.LNC and len(trunk) == 2 and len(head) <= 2
+    assert [-(-w // tfm.NCW) for w in trunk + head] == [
+        2 if w == tfm.LNC else 1 for w in trunk + head]
+
+
 @pytest.mark.parametrize("shape", [
     (8, 256, 4), (3, 128, 1), (8, 384, 4), (8, 512, 4), (8, 640, 4),
     (8, 1024, 4), (3, 1152, 2), (8, 192, 4), (8, 256, 0), (8, 256, 8),
@@ -353,3 +384,19 @@ def test_large_route_probe_finds_its_edits(name):
     assert set(probe.VARIANTS) == {"as is", "no epilogue stores", "no A copies",
                                    "no layer barrier", "4 A slots", "word stores"}
     assert (probe.variant_text(tile, name) == tile) == (name == "as is")
+
+
+@pytest.mark.parametrize("name", ["as is", "no layer-end stores", "no sigma read-back",
+                                  "plain stores"])
+def test_wide_route_probe_finds_its_edits(name):
+    """``probe_large_route --route wide`` edits a copy of csrc/mlp_tile.cuh
+    once per wide variant; every text it replaces must be there exactly
+    once, and every variant but the unedited one must change the file."""
+    from pathlib import Path
+
+    from nerf_sandbox_tpu_torch import probe_large_route as probe
+    tile = (Path(tfm.__file__).resolve().parent.parent / "csrc" / "mlp_tile.cuh").read_text()
+    assert set(probe.WIDE_VARIANTS) == {"as is", "no layer-end stores",
+                                        "no sigma read-back", "plain stores"}
+    edited = probe.variant_text(tile, name, probe.WIDE_VARIANTS)
+    assert (edited == tile) == (name == "as is")
