@@ -42,7 +42,10 @@ Phases (any failure exits non-zero):
    points bit for bit; K2c alone (the frequency model, contracted)
    and K3t (a 4-D grid, time_res 8, time tables N(1, 0.1), folded at
    t = 0.37, finite last bin; Σw·z held at 2e-2 x far) against their plain
-   versions; each timed, with its bound;
+   versions; the coarse tile (16384 x 64) against its plain version; each
+   timed, with its bound. K3 encode-only by its device time (a CUDA graph
+   of 20 calls), beside the event time of one call and the profiler's time
+   of one launch (here only), with the table read rate (``k3_times``);
 4c. K4 (the IPE encode inside K2) on phase 4's fine tile with the radii
    ``pixel_cone_radii(FOCAL, |d|)``, against its plain version at phase 4's
    tolerances, ERT (eps 1e-4) against none within 1e-3, and K4 with
@@ -92,7 +95,7 @@ Phases (any failure exits non-zero):
    ``nerf_forward_pass(use_kernel=True)`` through K1;
 5b4. the 360 configuration with 4-feature planes: K2c + K3 on phase 4b's
    fine tile against its plain version, K3's encode-only entry bit for bit,
-   timed; one 800x800 frame through ``render_pose`` and one
+   timed as in 4b; one 800x800 frame through ``render_pose`` and one
    ``nerf_forward_pass`` through K3 + K1, counted;
 7. K5, the precision probe: ``a @ b`` on the TPU probe's three shapes in
    the modes bf16, tf32, bf16x3 and fp32, each launch counted, its error
@@ -359,6 +362,65 @@ def kplanes_fp32_flops(kcfg):
     return n_s * per_scale + lines + hybrid + 3 * (n_s + 1) * 8
 
 
+def kplanes_table_bytes(kcfg):
+    """Table bytes K3 reads per sample: 4 texels of F bf16 features per plane
+    of each scale, 2 per time fold of a 4-D grid, 2 texels of Fl per line
+    (576 B at planes (64, 128) x 8 and lines x 16, 384 B at 4 features)."""
+    F, Fl, n_s = kcfg.plane_features, kcfg.line_features, len(kcfg.plane_res)
+    per_scale = 3 * 4 * F * 2 + (3 * 2 * F * 2 if kcfg.time_res else 0)
+    return n_s * per_scale + 3 * 2 * Fl * 2
+
+
+def kernel_ms_of(torch, events, match):
+    """Device time (ms) summed over the profiler's CUDA kernel events whose
+    name contains ``match``, or None when the events hold none."""
+    hits = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and match in e.name]
+    if not hits:
+        return None
+    return sum(e.time_range.end - e.time_range.start for e in hits) / 1e3
+
+
+def profiled_kernel_ms(torch, fn, match):
+    """One call of ``fn`` under torch.profiler: the device time (ms) of its
+    kernels whose name contains ``match``, or None if the trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return kernel_ms_of(torch, prof.events(), match)
+
+
+def k3_times(torch, ke, grid, pts, ep, tag, card, profiled=False):
+    """K3 encode-only on ``pts`` through the wrapper: its device time from a
+    CUDA graph of 20 calls (``graph_ms``), the CUDA-event time of one call
+    (``cuda_ms``, the wrapper's host time included) and the table read rate
+    (``kplanes_table_bytes``) at the device time; with ``profiled``, the
+    profiler's time of one launch too (the process's first profiler
+    session: later ones have traced no K3 kernel on the H100), failing when
+    the trace holds none. → (device ms, event ms)."""
+    Q = pts.shape[0]
+
+    def fn():
+        return ke.fused_kplanes_encode(grid, pts, ep)
+
+    dev_ms = graph_ms(torch, fn, n=20)
+    ev_ms = cuda_ms(torch, fn)
+    prof = ""
+    if profiled:
+        prof_ms = profiled_kernel_ms(torch, fn, "kplanes_encode")
+        check(prof_ms is not None, f"[{tag}] the profiler traced no K3 kernel")
+        prof = f", profiler kernel time {prof_ms:.4f} ms"
+    per_row = kplanes_table_bytes(grid.cfg)
+    print(f"[{tag}] encode-only {Q} rows: device {dev_ms:.4f} ms (CUDA graph of "
+          f"20 calls), one call {ev_ms:.4f} ms (CUDA events, host included){prof}; "
+          f"table reads {per_row} B a row, "
+          f"{per_row * Q / 1e9:.3f} GB = {per_row * Q / dev_ms / 1e9:.3f} TB/s at "
+          f"the device time | {card}", flush=True)
+    return dev_ms, ev_ms
+
+
 WGMMA_NOTE = re.compile(r"\((C75(?:1\d|20))\)")
 
 
@@ -398,7 +460,7 @@ def hidden_label(h):
 
 
 def kernel_label(mangled):
-    """A readable name of K1's, K2's and K5's instantiations (else the
+    """A readable name of K1's, K2's, K3's and K5's instantiations (else the
     mangled or plain name)."""
     k5 = re.search(r"precision_dot_kernelILi(\d)E", mangled)
     if k5:
@@ -415,6 +477,9 @@ def kernel_label(mangled):
         enc = ("freq", "kplanes", "ipe")[args[0]]
         return (f"K2 fused_raymarch<{enc}{', contract' if args[1] else ''}, "
                 f"{hidden_label(args[2])}>")
+    if name == "kplanes_encode_kernel" and len(args) == 2:
+        vf, vl = (str(a) if a else "any" for a in args)
+        return f"K3 kplanes_encode<planes {vf}, lines {vl}>"
     return name
 
 
@@ -690,10 +755,20 @@ def phase_360_tile(torch, dev, card, packed_freq, kernels):
     def k2(mlp, zz, **a):
         return lambda: fr.fused_raymarch(mlp, ro, rd, zz, rn, enc_dir, **a)
 
+    # the coarse tile (its last sample is the fine tile's: same kink)
+    dt_c = fr._deltas(zc, rn, True)
+    got_co = fr.fused_raymarch(mlp_f, ro, rd, zc, rn, enc_dir, None, kp_params=grid_f,
+                               **kw)
+    want_co = fr.fixup_outputs(*fr.fused_raymarch_plain(
+        mlp_f, ro, rd, zc, dt_c, rn, enc_dir, None, contract=True, kp=grid_f))
+    co_err = hold("K2c+K3 coarse", got_co, want_co, kink)
+
     kp_ms = cuda_ms(torch, k2(mlp_f, z, pos_bands=None, kp_params=grid_f, **kw))
     kp_coarse_ms = cuda_ms(torch, k2(mlp_f, zc, pos_bands=None, kp_params=grid_f, **kw))
     kp_plain_ms = cuda_ms(torch, lambda: fr.fused_raymarch_plain(
         mlp_f, ro, rd, z, dt, rn, enc_dir, None, contract=True, kp=grid_f))
+    co_plain_ms = cuda_ms(torch, lambda: fr.fused_raymarch_plain(
+        mlp_f, ro, rd, zc, dt_c, rn, enc_dir, None, contract=True, kp=grid_f), reps=3)
     tfold_ms = cuda_ms(torch, k2(mlp_t, z, pos_bands=None, kp_params=grid_t,
                                  kp_cfg=kcfg4, scene_contraction=True,
                                  infinite_last_bin=False))
@@ -705,22 +780,31 @@ def phase_360_tile(torch, dev, card, packed_freq, kernels):
                              scene_contraction=True))
     c_plain_ms = cuda_ms(torch, lambda: fr.fused_raymarch_plain(
         packed_freq, ro, rd, z, dt, rn, enc_dir, pos_bands, contract=True))
-    enc_ms = cuda_ms(torch, lambda: ke.fused_kplanes_encode(grid_f, pts, ep))
-    enc_plain_ms = cuda_ms(torch, lambda: ke.kplanes_encode_plain(grid_f, pts, ep))
     Q = B * N
-    ray_bytes = B * (7 + 27) * 4 + Q * 4 * 3 + B * 5 * 4
+    enc_ms, enc_ev_ms = k3_times(torch, ke, grid_f, pts, ep, "K3", card,
+                                  profiled=True)
+    enc_plain_ms = cuda_ms(torch, lambda: ke.kplanes_encode_plain(grid_f, pts, ep))
+
+    def tile_bound(n):
+        rows = B * n
+        return bound(2.0 * mlp_macs_per_row(cfg) * rows,
+                     B * (7 + 27) * 4 + rows * 4 * 3 + B * 5 * 4
+                     + mlp_f.flat.numel() * 2 + grid_f.flat.numel() * 2,
+                     (kplanes_fp32_flops(kcfg) + 20.0) * rows)
+
     kp_flops = kplanes_fp32_flops(kcfg) * Q
-    b_kp = bound(2.0 * mlp_macs_per_row(cfg) * Q,
-                 ray_bytes + mlp_f.flat.numel() * 2 + grid_f.flat.numel() * 2,
-                 kp_flops + 20.0 * Q)
+    b_kp, b_coarse = tile_bound(N), tile_bound(zc.shape[1])
     b_c = bound(2.0 * mlp_macs_per_row(packed_freq.cfg) * Q,
-                ray_bytes + packed_freq.flat.numel() * 2, 20.0 * Q)
+                B * (7 + 27) * 4 + Q * 4 * 3 + B * 5 * 4
+                + packed_freq.flat.numel() * 2, 20.0 * Q)
     b_enc = bound(0.0, Q * 3 * 4 + Q * ep * 2 + grid_f.flat.numel() * 2, kp_flops)
-    b_coarse = bound(2.0 * mlp_macs_per_row(cfg) * B * 64, 0.0)
     print(f"[K2c+K3] fine tile kernel {kp_ms:.3f} ms, plain {kp_plain_ms:.3f} ms, "
           f"bound {b_kp[0]:.3f} ms ({b_kp[1]}); coarse tile {B}x64 kernel "
-          f"{kp_coarse_ms:.3f} ms, bound {b_coarse[0]:.3f} ms; K3t (4-D fold) "
-          f"fine tile {tfold_ms:.3f} ms, plain {tfold_plain_ms:.3f} ms | {card}",
+          f"{kp_coarse_ms:.3f} ms, plain {co_plain_ms:.3f} ms, bound "
+          f"{b_coarse[0]:.3f} ms ({b_coarse[1]}), "
+          f"{100.0 * b_coarse[0] / kp_coarse_ms:.1f}%; K3t (4-D fold) "
+          f"fine tile {tfold_ms:.3f} ms, {100.0 * b_kp[0] / tfold_ms:.1f}% of the "
+          f"fine bound, plain {tfold_plain_ms:.3f} ms | {card}",
           flush=True)
     fetch_line("K2c+K3 fine", kp_ms, b_kp[0], mlp_passes(B, N), mlp_f, card)
     fetch_line("K2c+K3 coarse", kp_coarse_ms, b_coarse[0], mlp_passes(B, 64), mlp_f,
@@ -728,8 +812,9 @@ def phase_360_tile(torch, dev, card, packed_freq, kernels):
     print(f"[K2c] same tile, frequency model: with contraction {c_ms:.3f} ms, "
           f"without {freq_ms:.3f} ms, plain {c_plain_ms:.3f} ms, bound "
           f"{b_c[0]:.3f} ms ({b_c[1]})", flush=True)
-    print(f"[K3] encode-only {Q} rows: kernel {enc_ms:.3f} ms, plain "
-          f"{enc_plain_ms:.3f} ms, bound {b_enc[0]:.3f} ms ({b_enc[1]})", flush=True)
+    print(f"[K3] encode-only {Q} rows: kernel {enc_ms:.4f} ms (device; one call "
+          f"{enc_ev_ms:.4f} ms), plain {enc_plain_ms:.3f} ms, bound {b_enc[0]:.4f} ms "
+          f"({b_enc[1]}), {100.0 * b_enc[0] / enc_ms:.1f}% | {card}", flush=True)
     src = "nerf_sandbox_tpu_torch/csrc/"
     kernels["fused_raymarch_contract"] = dict(
         name="fused_raymarch_contract", route="cuda", source=src + "fused_raymarch.cu",
@@ -742,6 +827,12 @@ def phase_360_tile(torch, dev, card, packed_freq, kernels):
         max_abs_err=max(kp_err, *(t_errs[n] for n in names[:3])), ms=kp_ms,
         plain_ms=kp_plain_ms,
         bound_ms=b_kp[0], bound_by=b_kp[1], library_ms=None)
+    kernels["fused_raymarch_kplanes_coarse"] = dict(
+        name="fused_raymarch_kplanes_coarse", route="cuda",
+        source=src + "fused_raymarch.cu",
+        replaces="nerf_sandbox_tpu/ops/fused_raymarch.py:211", max_abs_err=co_err,
+        ms=kp_coarse_ms, plain_ms=co_plain_ms, bound_ms=b_coarse[0],
+        bound_by=b_coarse[1], library_ms=None)
     kernels["kplanes_encode"] = dict(
         name="kplanes_encode", route="cuda", source=src + "kplanes_encode.cu",
         replaces="nerf_sandbox_tpu/ops/fused_raymarch.py:211", max_abs_err=enc_err,
@@ -800,17 +891,24 @@ def phase_360_slice(torch, dev, card, ctx):
                                 scene_contraction=True, device=dev)
     torch.cuda.synchronize()
     routes = dict(fr.fused_raymarch.route_launches)
-    launches = {"fused_raymarch_kplanes": routes["kplanes"],
+    tiles = dict(fr.fused_raymarch.tile_launches)
+    n_c = hyper.nc_eval
+    n_f = n_c + hyper.nf_eval
+    launches = {"fused_raymarch_kplanes": tiles.get(("kplanes", n_f), 0),
+                "fused_raymarch_kplanes_coarse": tiles.get(("kplanes", n_c), 0),
                 "fused_raymarch_contract": routes["contract"],
                 "kplanes_encode": ke.fused_kplanes_encode.launches,
                 "fused_mlp": fm.fused_nerf_apply.launches}
     n_tiles = -(-IMG * IMG // EVAL_CHUNK)
-    expect = 2 * n_tiles * N_POSES
-    print(f"[slice 360] launches on this path: {launches}, K2 routes {routes} "
-          f"(k-planes + contraction expected {expect}, {2 * n_tiles} a frame)",
-          flush=True)
-    check(routes["kplanes"] == expect and routes["contract"] == expect,
-          f"K2 k-planes/contraction launched {routes}, expected {expect}")
+    expect = n_tiles * N_POSES
+    print(f"[slice 360] launches on this path: {launches}, K2 routes {routes}, "
+          f"by (encoder, samples) {tiles} (k-planes + contraction expected "
+          f"{expect} fine x {n_f} and {expect} coarse x {n_c}, {2 * n_tiles} a "
+          f"frame)", flush=True)
+    check(tiles == {("kplanes", n_f): expect, ("kplanes", n_c): expect}
+          and routes["kplanes"] == routes["contract"] == 2 * expect,
+          f"K2 k-planes/contraction launched {routes}, {tiles}, expected {expect} "
+          f"fine and {expect} coarse")
     check(routes["freq"] == routes["tfold"] == routes["ipe"] == 0,
           f"the 360 path ran another K2 instantiation: {routes}")
     check(launches["kplanes_encode"] >= 1 and launches["fused_mlp"] >= 1,
@@ -1604,9 +1702,9 @@ def phase_kp_narrow(torch, dev, card, ctx, kernels):
                                                      **kw))
     kp_plain_ms = cuda_ms(torch, lambda: fr.fused_raymarch_plain(
         mlp, ro, rd, z, dt, rn, enc_dir, None, contract=True, kp=grid), reps=3)
-    enc_ms = cuda_ms(torch, lambda: ke.fused_kplanes_encode(grid, pts, ep))
-    enc_plain_ms = cuda_ms(torch, lambda: ke.kplanes_encode_plain(grid, pts, ep), reps=3)
     Q = B * N
+    enc_ms, enc_ev_ms = k3_times(torch, ke, grid, pts, ep, "K3 F=4", card)
+    enc_plain_ms = cuda_ms(torch, lambda: ke.kplanes_encode_plain(grid, pts, ep), reps=3)
     kp_flops = kplanes_fp32_flops(kcfg) * Q
     b_kp = bound(2.0 * mlp_macs_per_row(cfg) * Q, B * (7 + 27) * 4 + Q * 4 * 3
                  + B * 5 * 4 + mlp.flat.numel() * 2 + grid.flat.numel() * 2,
@@ -1614,8 +1712,9 @@ def phase_kp_narrow(torch, dev, card, ctx, kernels):
     b_enc = bound(0.0, Q * 3 * 4 + Q * ep * 2 + grid.flat.numel() * 2, kp_flops)
     print(f"[K2c+K3 F=4] fine tile {B}x{N} kernel {kp_ms:.3f} ms, plain "
           f"{kp_plain_ms:.3f} ms, bound {b_kp[0]:.3f} ms ({b_kp[1]}); K3 encode-only "
-          f"{Q} rows kernel {enc_ms:.3f} ms, plain {enc_plain_ms:.3f} ms, bound "
-          f"{b_enc[0]:.3f} ms ({b_enc[1]}) | {card}", flush=True)
+          f"{Q} rows kernel {enc_ms:.4f} ms (device; one call {enc_ev_ms:.4f} ms), "
+          f"plain {enc_plain_ms:.3f} ms, bound {b_enc[0]:.4f} ms ({b_enc[1]}), "
+          f"{100.0 * b_enc[0] / enc_ms:.1f}% | {card}", flush=True)
     kernels["fused_raymarch_kplanes_f4"] = dict(
         name="fused_raymarch_kplanes_f4", route="cuda", source=src + "fused_raymarch.cu",
         replaces="nerf_sandbox_tpu/ops/fused_raymarch.py:211", max_abs_err=kp_err,

@@ -1,6 +1,6 @@
 """Time two builds of K1, K2 and K3's encode-only entry in turns, on one card.
 
-    python -m nerf_sandbox_tpu_torch.compare_builds --old-csrc DIR [--hidden 128,256,384,512,640,1024] [--out FILE]
+    python -m nerf_sandbox_tpu_torch.compare_builds --old-csrc DIR [--hidden 128,256,384,512,640,1024] [--rounds N] [--out FILE]
 
 ``DIR`` holds an earlier ``csrc/`` (``fused_mlp.cu``, ``fused_raymarch.cu``,
 ``kplanes_encode.cu`` and the headers they include) whose C entry points are
@@ -11,19 +11,21 @@ build reads the weight stream of its own tree: ``DIR/../ops/fused_mlp.py``'s
 script builds ``DIR`` with the package's nvcc flags (one compiler per
 source, per part for the sources the package builds in parts, all at once)
 into ``build/compare_old/``, builds the current sources as the package
-does, and times, in the order old, new, new, old (each a median of 10
-CUDA-event runs after warm-up): K1 at 2^20 rows and K2 on the Blender fine
+does, and times, in the order old, new, new, old, that order ``--rounds``
+times (each a median of 10 CUDA-event runs after warm-up; the medians of
+each build's times printed beside them): K1 at 2^20 rows and K2 on the Blender fine
 (16384 x 192) eval tile of ``chip_smoke.py`` (frame 1's mid-frame tile) at
 each width of ``--hidden`` (8 layers, skip 4; the reference weights at 256,
 seeded ones at the others), K2 on the coarse (16384 x 64) tile at each
-width from 256, K2's other five routes on the fine tile at each width (the
+width from 256, K2's other routes on the fine tile at each width (the
 frequency encoder with contraction, IPE with and without, and k-planes with
-and without, on the full-width planes of ``chip_smoke.kp_configs`` with
-seeded tables and an MLP of that width), and K3's
-encode-only entry on the contracted
-points of a 360 tile (16384 rays of frame 1's middle x 192 lindisp samples,
-the full-width planes of ``chip_smoke.kp_configs``). Both builds are called
-through ctypes on the same prepared tensors. It prints each time, old and new outputs' largest
+and without contraction on each table set of :func:`kp_grids`: the
+full-width planes of ``chip_smoke.kp_configs``, 4-feature planes and a 4-D
+grid, seeded, with an MLP of that width), and K3's encode-only entry on the
+contracted points of a 360 tile (16384 rays of frame 1's middle x 192
+lindisp samples) for each table set, its device time from CUDA graphs of 20
+calls (``chip_smoke.graph_ms``). Both builds are called through ctypes on
+the same prepared tensors. It prints each time, old and new outputs' largest
 difference, the card's name and power limit, and the rate of a copy between
 two 16 MB buffers resident in L2 (a lower bound on the card's L2 bandwidth,
 for reading the weight-stream rates that ``chip_smoke.py`` prints);
@@ -37,6 +39,7 @@ import ctypes
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -84,6 +87,56 @@ def build_variant(csrc: Path, tag: str,
     return libs
 
 
+def edited_sources(csrc: Path, edits: dict) -> dict:
+    """{file of csrc: its text with ``edits[file]`` made}: each edit a pair
+    (text, its replacement), the text found in the file exactly once."""
+    texts = {}
+    for fname, pairs in edits.items():
+        text = (csrc / fname).read_text()
+        for old, new in pairs:
+            if text.count(old) != 1:
+                raise ValueError(f"the text to edit is not in {fname} once: {old!r}")
+            text = text.replace(old, new)
+        texts[fname] = text
+    return texts
+
+
+def build_variants(csrc: Path, variants: dict, prefix: str, names) -> dict:
+    """Variants of csrc, {name: {file: edits}} (:func:`edited_sources`),
+    each copied under build/<prefix>_<i>/csrc with its edits, the sources
+    ``names`` of every copy built at once (:func:`build_variant`, one
+    compiler each). → {name: (its libraries by source, its build/ dir)}."""
+    from concurrent.futures import ThreadPoolExecutor
+    dirs = {}
+    for i, (name, edits) in enumerate(variants.items()):
+        d = ROOT / "build" / f"{prefix}_{i}" / "csrc"
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(csrc, d)
+        for fname, text in edited_sources(csrc, edits).items():
+            (d / fname).write_text(text)
+        dirs[name] = (d, f"{prefix}_{i}")
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        libs = pool.map(lambda dt: build_variant(*dt, names), dirs.values())
+    return {name: (lib, d.parent) for (name, (d, _)), lib in zip(dirs.items(), libs)}
+
+
+def in_turns(names, time_one) -> dict:
+    """``time_one(name)`` for the names in order, then in reverse, so that a
+    drift of the card over the run falls on all alike. → {name: [t, t]}."""
+    names = list(names)
+    times = {name: [] for name in names}
+    for name in names + names[::-1]:
+        times[name].append(time_one(name))
+    return times
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def stage_weights_of(csrc: Path):
     """``stage_weights`` of the tree whose kernels are in csrc (its
     ``ops/fused_mlp.py``, imported by path), so that a build reads the
@@ -99,11 +152,60 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def points_360(torch, dev):
+    """K3's points: the 360 configuration's frame 1, its mid-frame tile of
+    16384 rays x 192 disparity-linear samples, contracted (3,145,728 x 3
+    fp32, ray by ray)."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from nerf_sandbox_tpu_torch.core.encoding import scene_contract
+    from nerf_sandbox_tpu_torch.core.rays import get_camera_rays_grid
+    from nerf_sandbox_tpu_torch.core.sampling import stratified_samples
+    K = np.array([[cs.FOCAL, 0, cs.IMG / 2], [0, cs.FOCAL, cs.IMG / 2], [0, 0, 1]],
+                 np.float32)
+    rays = get_camera_rays_grid(
+        torch.from_numpy(K).to(dev), torch.from_numpy(cs.orbit_360_pose(1)).to(dev),
+        image_h=cs.IMG, image_w=cs.IMG, pixel_center=True)
+    sl = slice(cs.IMG * cs.IMG // 2, cs.IMG * cs.IMG // 2 + cs.EVAL_CHUNK)
+    z = stratified_samples(cs.NEAR_360, cs.FAR_360, 192, lindisp=True, device=dev)
+    return scene_contract(
+        (rays.o_march[sl][:, None, :] + rays.d_march_unit[sl][:, None, :]
+         * (z * rays.d_march_norm[sl])[..., None]).reshape(-1, 3)).contiguous()
+
+
+def kp_grids(torch, ke, NeRFMLP, dev) -> dict:
+    """The k-planes tables K2's k-planes routes and K3 are compared on, by
+    route suffix: "" the 360 configuration at full width
+    (``chip_smoke.kp_configs``), "_f4" with 4-feature planes, "_4d" with
+    time_res 8, its time tables moved off 1.0 by N(0, 0.1) and folded at
+    t = 0.37 (chip_smoke.py phase 4b's K3t), each from a seeded model. →
+    {suffix: (KPlanesConfig, PackedKPlanes)}."""
+    import chip_smoke as cs
+    kcfg, _ = cs.kp_configs()
+    out = {}
+    for suffix, kc, seed in (("", kcfg, 2), ("_f4", kcfg._replace(plane_features=4), 5),
+                             ("_4d", kcfg._replace(time_res=8), 3)):
+        grid = NeRFMLP(cs.kp_configs()[1]._replace(enc_pos_dim=kc.out_dim),
+                       generator=torch.Generator().manual_seed(seed), grid_cfg=kc,
+                       device=dev).pos_grid
+        if kc.time_res:
+            g = torch.Generator().manual_seed(4)
+            with torch.no_grad():
+                for name, tab in grid.named_parameters():
+                    if name == "line_t" or name.split("_")[-1] in ("xt", "yt", "zt"):
+                        tab += 0.1 * torch.randn(tab.shape, generator=g).to(dev)
+        out[suffix] = (kc, ke.pack_kplanes(grid, kc, t=0.37 if kc.time_res else None))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old-csrc", required=True, type=Path)
     ap.add_argument("--hidden", default="256",
                     help="comma-separated hidden widths for K1 and K2 (default 256)")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="times each comparison runs the order old, new, new, old")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -112,7 +214,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from nerf_sandbox_tpu_torch.core.encoding import (
-        positional_encoding, scene_contract, vanilla_encoders)
+        positional_encoding, vanilla_encoders)
     from nerf_sandbox_tpu_torch.core.rays import get_camera_rays_grid
     from nerf_sandbox_tpu_torch.core.sampling import (
         merge_z_samples, resample_midpoints, stratified_samples)
@@ -123,9 +225,7 @@ def main(argv=None) -> int:
     from nerf_sandbox_tpu_torch.ops import kplanes_encode as ke
 
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     t0 = time.perf_counter()
     old = build_variant(args.old_csrc, "compare_old")
     cuda_build.build_all(("fused_mlp", "fused_raymarch", "kplanes_encode"))
@@ -220,22 +320,20 @@ def main(argv=None) -> int:
                            + [ctypes.c_void_p] * 3)
             g[w, large] = fn
     coarse = [H for H in widths if H >= 256]
-    others = ["freq_contract", "ipe", "ipe_contract", "kplanes", "kplanes_contract"]
     # K4's pixel-cone radii (any positive values do for comparing builds),
-    # and the k-planes routes' tables and MLPs of each width
+    # and the k-planes routes' tables (kp_grids) and MLPs of each width
     radii = (rn * 5e-4).contiguous()
-    kcfg, kp_mlp = cs.kp_configs()
-    grid = ke.pack_kplanes(NeRFMLP(kp_mlp, generator=torch.Generator().manual_seed(2),
-                                   grid_cfg=kcfg, device=dev).pos_grid, kcfg)
-    kp_ep = fm._enc_pads(kp_mlp)[0]
-    kp_args = ke.kp_c_args(grid)
+    grids = kp_grids(torch, ke, NeRFMLP, dev)
+    others = ["freq_contract", "ipe", "ipe_contract"] + [
+        f"kplanes{c}{g}" for g in grids for c in ("", "_contract")]
     kp_packs = {}
     for H in widths:
-        kp_packs[H] = pk = fm.pack_nerf_params(NeRFMLP(
-            NeRFConfig(kp_mlp.enc_pos_dim, 27, 8, H, 4),
-            generator=torch.Generator().manual_seed(H + 1), device=dev))
-        staged["new", "kplanes", H] = pk.staged
-        staged["old", "kplanes", H] = old_stage(pk.cfg, pk.views).contiguous()
+        for P in sorted({kc.out_dim for kc, _ in grids.values()}):
+            kp_packs[P, H] = pk = fm.pack_nerf_params(NeRFMLP(
+                NeRFConfig(P, 27, 8, H, 4),
+                generator=torch.Generator().manual_seed(H + 1), device=dev))
+            staged["new", P, H] = pk.staged
+            staged["old", P, H] = old_stage(pk.cfg, pk.views).contiguous()
     tiles = {}
     for name, z, H in ([("fine", zf, H) for H in widths]
                        + [("coarse", zc, H) for H in coarse]
@@ -250,12 +348,18 @@ def main(argv=None) -> int:
         z, outs = tiles[name, H]
         B, N = z.shape
         kp = name.startswith("kplanes")
-        pk = kp_packs[H] if kp else packs[H]
-        st = staged[which, "kplanes", H] if kp else staged[which, H]
-        rest = [B, N, 27, H, kp_ep if kp else ep_pad, ed_pad, 8, 4, 0, 1, 0, 0.0,
-                int(name.endswith("contract")),
+        if kp:
+            kcfg, grid = grids[name.replace("kplanes", "").replace("_contract", "")]
+            P = kcfg.out_dim
+            pk, st = kp_packs[P, H], staged[which, P, H]
+            ep = fm._enc_pads(pk.cfg)[0]
+        else:
+            pk, st, ep = packs[H], staged[which, H], ep_pad
+        rest = [B, N, 27, H, ep, ed_pad, 8, 4, 0, 1, 0, 0.0,
+                int("contract" in name),
                 _ptr(radii) if name.startswith("ipe") else None,
-                *(kp_args if kp else [None, None, None, 0, 0, 0, 0, 0, 0.0, None, 0]),
+                *(ke.kp_c_args(grid) if kp
+                  else [None, None, None, 0, 0, 0, 0, 0, 0.0, None, 0]),
                 *large_args(H), _ptr(outs[which][0]), _ptr(outs[which][1]), stream]
         rays = [_ptr(ro), _ptr(rd), _ptr(rn), _ptr(enc_dir), _ptr(z)]
         weights = [c_bands, bands.size, 1, _ptr(pk.flat), fm.offsets_arg(pk)]
@@ -263,25 +367,22 @@ def main(argv=None) -> int:
         if err:
             raise RuntimeError(f"{which} K2 launch: CUDA error {err}")
 
-    # K3 inputs: the 360 configuration's tables (K2's k-planes routes') on
-    # contracted points
-    rays_360 = get_camera_rays_grid(
-        torch.from_numpy(Kmat).to(dev), torch.from_numpy(cs.orbit_360_pose(1)).to(dev),
-        image_h=cs.IMG, image_w=cs.IMG, pixel_center=True)
-    z360 = stratified_samples(cs.NEAR_360, cs.FAR_360, 192, lindisp=True, device=dev)
-    pts = scene_contract(
-        (rays_360.o_march[sl][:, None, :] + rays_360.d_march_unit[sl][:, None, :]
-         * (z360 * rays_360.d_march_norm[sl])[..., None]).reshape(-1, 3)).contiguous()
-    k3_out = {k: torch.empty((pts.shape[0], kp_ep), dtype=torch.bfloat16, device=dev)
-              for k in ("old", "new")}
+    # K3 inputs: the tables of K2's k-planes routes on contracted points
+    pts = points_360(torch, dev)
+    k3_ep = {g: fm._enc_pads(NeRFConfig(kc.out_dim, 27))[0] for g, (kc, _) in grids.items()}
+    k3_out = {(k, g): torch.empty((pts.shape[0], k3_ep[g]), dtype=torch.bfloat16,
+                                  device=dev)
+              for k in ("old", "new") for g in grids}
     h = {w: libs[w]["kplanes_encode"].nerf_kplanes_encode for w in libs}
     for fn in h.values():
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + ke.KP_C_ARGTYPES
                        + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 
-    def k3(which):
-        err = h[which](_ptr(pts), pts.shape[0], *kp_args, kp_ep, _ptr(k3_out[which]),
-                       stream)
+    def k3(which, g):
+        # on the current stream, so that graph_ms can capture it
+        err = h[which](_ptr(pts), pts.shape[0], *ke.kp_c_args(grids[g][1]), k3_ep[g],
+                       _ptr(k3_out[which, g]),
+                       ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         if err:
             raise RuntimeError(f"{which} K3 launch: CUDA error {err}")
 
@@ -293,29 +394,33 @@ def main(argv=None) -> int:
              for H in coarse]
     runs += [(f"K2 {r} fine 16384x192 H={H}", lambda w, r=r, H=H: k2(w, r, H))
              for r in others for H in widths]
-    runs.append((f"K3 encode-only {pts.shape[0]} rows", k3))
+    runs += [(f"K3 encode-only {pts.shape[0]} rows{g or '_f8'} (device)",
+              lambda w, g=g: k3(w, g)) for g in grids]
     for label, fn in runs:
+        # K3 from CUDA graphs of 20 calls: device time, not the host's per call
+        timer = ((lambda f: cs.graph_ms(torch, f, n=20)) if label.startswith("K3")
+                 else (lambda f: cs.cuda_ms(torch, f)))
         times = []
-        for which in ("old", "new", "new", "old"):
-            times.append((which, cs.cuda_ms(torch, lambda: fn(which))))
+        for which in ("old", "new", "new", "old") * args.rounds:
+            times.append((which, timer(lambda: fn(which))))
         torch.cuda.synchronize()
-        old_ms = [t for w, t in times if w == "old"]
-        new_ms = [t for w, t in times if w == "new"]
-        print(f"[compare] {label}: old, new, new, old = "
-              f"{', '.join(f'{t:.3f}' for _, t in times)} ms; old {np.mean(old_ms):.3f} "
-              f"ms, new {np.mean(new_ms):.3f} ms: {np.mean(old_ms) / np.mean(new_ms):.2f}x"
-              f" | {card}", flush=True)
+        old_ms = np.median([t for w, t in times if w == "old"])
+        new_ms = np.median([t for w, t in times if w == "new"])
+        print(f"[compare] {label}: (old, new, new, old) x {args.rounds} = "
+              f"{', '.join(f'{t:.3f}' for _, t in times)} ms; median old {old_ms:.3f} "
+              f"ms, new {new_ms:.3f} ms: {old_ms / new_ms:.3f}x | {card}", flush=True)
         result[label] = {"order": [w for w, _ in times], "ms": [t for _, t in times]}
     d_k1 = {H: float((k1_out["old", H] - k1_out["new", H]).abs().max()) for H in widths}
     d_k2 = {f"{n} H={H}": [float((o["old"][i] - o["new"][i]).abs().max()) for i in (0, 1)]
             for (n, H), (_, o) in tiles.items()}
-    n_k3 = int((k3_out["old"] != k3_out["new"]).sum())
+    n_k3 = {g or "_f8": int((k3_out["old", g] != k3_out["new", g]).sum()) for g in grids}
     same = {f"K1 H={H}": torch.equal(k1_out["old", H], k1_out["new", H]) for H in widths}
     same.update({f"K2 {n} H={H}": all(torch.equal(o["old"][i], o["new"][i]) for i in (0, 1))
                  for (n, H), (_, o) in tiles.items()})
+    same.update({f"K3 {g}": n == 0 for g, n in n_k3.items()})
     print(f"[compare] old vs new outputs: K1 max|diff| by width {d_k1}; K2 (raw, w) "
-          f"max|diff| {d_k2}; K3 {n_k3} of {k3_out['new'].numel()} values differ; "
-          f"bit-identical: {same}", flush=True)
+          f"max|diff| {d_k2}; K3 values that differ by table set {n_k3}; "
+          f"bit-identical: {same}; all bit-identical: {all(same.values())}", flush=True)
     result["max_diff"] = {"K1": d_k1, "K2": d_k2, "K3_values_differ": n_k3}
     result["bit_identical"] = same
 

@@ -66,6 +66,7 @@ constexpr int SPC = 4;                         // samples of each ray per pass
 constexpr int WG_RAYS = WG_ROWS / SPC;         // rays of one consumer warpgroup
 constexpr int RAYS = WG_RAYS * N_CONSUMERS;    // rays of a group
 constexpr int MAX_BANDS = 32;
+static_assert(WG_ROWS == KP_ROWS, "K3 encodes one warpgroup's rows per pass");
 
 struct MarchArgs {
   const float *rays_o, *rays_d, *ray_norms, *enc_dir, *z;
@@ -97,6 +98,19 @@ struct SwizzledRows {
   bf16* base;
   __device__ __forceinline__ bf16* at(int q, int c) const { return base + swz(q, c); }
 };
+
+// K3 over warpgroup wg's rows: each point of pts turned into its x01 in
+// place (kp_unit, once per row), then the work list. A call, not inlined: its
+// code inlined, or x01 computed where the points are placed, moved ptxas into
+// spilling the k-planes instantiations at H = 512 (the wide path holds 192
+// registers through a pass) or into serializing the wgmmas (C7511) of the
+// contracted one at H = 256.
+static __device__ __noinline__ void kplanes_encode_pass(const KpArgs& k, float* pts,
+                                                        bf16* enc, int wg, int t) {
+  for (int i = t; i < WG_ROWS * 3; i += WG_THREADS) pts[i] = kp_unit(pts[i], k.box);
+  wg_sync(wg);
+  kplanes_encode_rows(k, pts, WG_ROWS, t, WG_THREADS, SwizzledRows{enc});
+}
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -213,6 +227,18 @@ fused_raymarch_kernel(const MarchArgs a, const MlpArgsOf<H> P,
   const int n_enc = n_id + 2 * half;
   const int n_groups = (a.B + RAYS - 1) / RAYS;
   Pipe pipe(S, P, R != ROUTE_REGS);
+  if (ENC == ENC_KPLANES) {
+    // K3's zero padding from the first 8-aligned column past the row: nothing
+    // else writes enc there, so once per block; row t % 64, every other
+    // 16-byte unit (the same trip count in every thread)
+    const int units = (EP - k.c_zero) >> 3;
+    for (int u0 = 0; u0 < units; u0 += 2) {
+      const int u = u0 + t / WG_ROWS;
+      if (u < units)
+        *reinterpret_cast<uint4*>(enc + swz(t % WG_ROWS, k.c_zero + 8 * u)) =
+            make_uint4(0, 0, 0, 0);
+    }
+  }
 
   for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
     const int ray0 = grp * RAYS + wg * WG_RAYS;
@@ -284,8 +310,7 @@ fused_raymarch_kernel(const MarchArgs a, const MlpArgsOf<H> P,
       }
       wg_sync(wg);
       if (ENC == ENC_KPLANES) {
-        kplanes_encode_rows(k, pts, WG_ROWS, WG_ROWS, t, WG_THREADS,
-                            SwizzledRows{enc}, EP);
+        kplanes_encode_pass(k, pts, enc, wg, t);
       } else {
         // per row: the identity columns, one task per (band, coordinate) that
         // writes its sin and its cos column, then the zero padding

@@ -29,9 +29,11 @@ template parameters of the kernel.
 kernel's bf16 rounding points; it marches every sample (ERT changes each
 output by less than ``ert_eps`` per channel). :func:`fused_raymarch` takes it
 only for CPU tensors; for CUDA tensors it launches the kernel or raises, and
-counts the launch in ``fused_raymarch.launches`` and, per route (``freq``,
+counts the launch in ``fused_raymarch.launches``, per route (``freq``,
 ``kplanes`` or ``ipe``: the encoder; ``contract``, ``tfold``, ``large``: the
-other branches the launch ran), in ``fused_raymarch.route_launches``.
+other branches the launch ran) in ``fused_raymarch.route_launches``, and per
+encoder and samples a ray (``("kplanes", 64)``: a 64-sample coarse tile) in
+``fused_raymarch.tile_launches``.
 
 K4 computes each sample's interval from its neighbours in the kernel (the
 row of z is in device memory; the TPU streamed μ and the half-width because
@@ -243,8 +245,10 @@ def _launch(packed: PackedMLP, rays_o, rays_d_unit, z_vals, ray_norms,
     cuda_build.check(lib, err, "fused_raymarch kernel launch")
     fused_raymarch.launches += 1
     routes = fused_raymarch.route_launches
-    routes["kplanes" if kp is not None else "ipe" if radii is not None
-           else "freq"] += 1
+    enc = "kplanes" if kp is not None else "ipe" if radii is not None else "freq"
+    routes[enc] += 1
+    tiles = fused_raymarch.tile_launches
+    tiles[enc, N] = tiles.get((enc, N), 0) + 1
     routes["contract"] += int(contract)
     routes["tfold"] += int(kp is not None and kp.t is not None)
     routes["large"] += int(large)
@@ -339,9 +343,11 @@ def fixup_outputs(raw: torch.Tensor, w: torch.Tensor):
 
 
 def reset_launches() -> None:
-    """Set K2's launch counts, the total and each route's, to 0."""
+    """Set K2's launch counts, the total, each route's and each tile
+    shape's, to 0."""
     fused_raymarch.launches = 0
     fused_raymarch.route_launches = dict.fromkeys(ROUTES, 0)
+    fused_raymarch.tile_launches = {}
 
 
 reset_launches()

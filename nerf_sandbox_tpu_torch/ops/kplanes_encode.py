@@ -26,7 +26,13 @@ write groups of 4, 2 or 1 values, with the same arithmetic). Per sample the enco
 about 576 B from L2 and writes EP_PAD·2 bytes; inside K2 the rows stay in
 shared memory. The encode-only launch here (``fused_kplanes_encode``) is the
 same ``__device__`` function over Q rows, written to device memory: bound by
-those writes.
+those writes. Both run K3 as a work list of tasks of about equal cost (a
+plane group of one scale, a line group, the identity columns, one
+coordinate's sines and cosines for three bands) spread over the block's
+threads; the encode-only kernel is a persistent grid of 64-row tiles that
+sends whole rows out, the zero padding from registers. The ctypes arguments
+of the tables are built once, by :func:`pack_kplanes`, and the C entry's
+argument types once per process.
 
 :func:`pack_kplanes` builds the kernels' one bf16 buffer, once per render
 (the 4-D fold depends on the frame's time). :func:`kplanes_encode_plain` is
@@ -37,6 +43,7 @@ of the bf16 values, chunked over rows.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -67,6 +74,7 @@ class PackedKPlanes(NamedTuple):
     offsets: tuple
     views: dict
     t: float | None
+    c_args: tuple = ()       # kp_c_args, built once by pack_kplanes
 
     @property
     def bands(self):
@@ -147,8 +155,8 @@ def pack_kplanes(kp, kp_cfg: KPlanesConfig, t=None) -> PackedKPlanes:
             n *= d
         views[name] = flat[off:off + n].view(shape)
         views[name].copy_(src[name].reshape(shape))
-    return PackedKPlanes(kp_cfg, flat, tuple(offsets), views,
-                         t if dyn else None)
+    kp = PackedKPlanes(kp_cfg, flat, tuple(offsets), views, t if dyn else None)
+    return kp._replace(c_args=tuple(_make_c_args(kp)))
 
 
 def _hat_bf16(x01: torch.Tensor, R: int) -> torch.Tensor:
@@ -211,7 +219,14 @@ def check_kernel_shapes(kp: PackedKPlanes, ep_pad: int) -> None:
 
 def kp_c_args(kp: PackedKPlanes) -> list:
     """The C arguments that describe the packed tables (kplanes_encode.cuh:
-    make_kp_args), in order."""
+    make_kp_args), in order: those :func:`pack_kplanes` built, or new ones
+    when ``kp.flat`` is not the buffer they point to."""
+    if kp.c_args and kp.c_args[0].value == kp.flat.data_ptr():
+        return list(kp.c_args)
+    return _make_c_args(kp)
+
+
+def _make_c_args(kp: PackedKPlanes) -> list:
     cfg = kp.cfg
     bands = kp.bands if cfg.hybrid_freqs > 0 else []
     return [_ptr(kp.flat), (ctypes.c_longlong * len(kp.offsets))(*kp.offsets),
@@ -228,6 +243,16 @@ KP_C_ARGTYPES = ([ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
                  + [ctypes.c_float, ctypes.POINTER(ctypes.c_float), ctypes.c_int])
 
 
+@functools.cache
+def _encode_fn():
+    """K3's C entry, its argument types set once."""
+    fn = cuda_build.load("kplanes_encode").nerf_kplanes_encode
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + KP_C_ARGTYPES
+                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch(kp: PackedKPlanes, pts: torch.Tensor, ep_pad: int) -> torch.Tensor:
     """Launch the encode-only K3 kernel on the current stream."""
     check_kernel_shapes(kp, ep_pad)
@@ -242,15 +267,11 @@ def _launch(kp: PackedKPlanes, pts: torch.Tensor, ep_pad: int) -> torch.Tensor:
                          "CUDA device")
     Q = p.shape[0]
     out = torch.empty((Q, ep_pad), dtype=torch.bfloat16, device=p.device)
-    lib = cuda_build.load("kplanes_encode")
-    fn = lib.nerf_kplanes_encode
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + KP_C_ARGTYPES
-                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    err = fn(_ptr(p), Q, *kp_c_args(kp), ep_pad, _ptr(out),
-             ctypes.c_void_p(stream))
-    cuda_build.check(lib, err, "kplanes_encode kernel launch")
+    err = _encode_fn()(_ptr(p), Q, *kp_c_args(kp), ep_pad, _ptr(out),
+                       ctypes.c_void_p(stream))
+    cuda_build.check(cuda_build.load("kplanes_encode"), err,
+                     "kplanes_encode kernel launch")
     fused_kplanes_encode.launches += 1
     return out
 

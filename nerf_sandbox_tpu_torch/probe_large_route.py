@@ -2,11 +2,10 @@
 
     python -m nerf_sandbox_tpu_torch.probe_large_route [--route wide]
 
-Copies ``csrc/`` under ``build/`` once per variant of :data:`VARIANTS` (with
-``--route wide``: :data:`WIDE_VARIANTS`), each with its edits of
-``mlp_tile.cuh``, builds K1 from every copy at once
-(``compare_builds.build_variant``) and times them on one card in turns (the
-variants in order, then in reverse; each a median of 5 CUDA-event runs) at
+Builds K1 once per variant of :data:`VARIANTS` (with ``--route wide``:
+:data:`WIDE_VARIANTS`), each with its edits of ``mlp_tile.cuh``, all at once
+(``compare_builds.build_variants``) and times them on one card in turns
+(``compare_builds.in_turns``; each a median of 5 CUDA-event runs) at
 2^20 rows of 8x640 and 8x1024 (wide: 8x384 and 8x512) skip-4 MLPs with
 seeded weights, printing each time, its share of the bound, and whether its
 output equals the unedited build's. The variants that take a part out
@@ -18,10 +17,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import shutil
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -144,16 +140,6 @@ WIDE_VARIANTS = {
 }
 
 
-def variant_text(tile: str, name: str, variants=VARIANTS) -> str:
-    """csrc/mlp_tile.cuh with the edits of ``variants[name]``."""
-    for old, new in variants[name]:
-        if tile.count(old) != 1:
-            raise RuntimeError(f"variant {name!r}: its text is not in "
-                               f"csrc/mlp_tile.cuh once")
-        tile = tile.replace(old, new)
-    return tile
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--route", choices=("large", "wide"), default="large")
@@ -164,26 +150,18 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
-    from nerf_sandbox_tpu_torch.compare_builds import build_variant
+    from nerf_sandbox_tpu_torch.compare_builds import build_variants, card_line, in_turns
     from nerf_sandbox_tpu_torch.models.mlp import NeRFConfig, NeRFMLP
+    from nerf_sandbox_tpu_torch.ops import cuda_build
     from nerf_sandbox_tpu_torch.ops import fused_mlp as fm
 
-    csrc = ROOT / "nerf_sandbox_tpu_torch" / "csrc"
-    tile = (csrc / "mlp_tile.cuh").read_text()
-    dirs = {}
     route = "wide" if wide else "large"
-    for i, name in enumerate(variants):
-        d = ROOT / "build" / f"probe_{route}_{i}" / "csrc"
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(csrc, d)
-        (d / "mlp_tile.cuh").write_text(variant_text(tile, name, variants))
-        dirs[name] = (d, f"probe_{route}_{i}")
-    with ThreadPoolExecutor(len(dirs)) as pool:   # one compiler each, all at once
-        libs = pool.map(lambda dt: build_variant(*dt, ("fused_mlp",))["fused_mlp"],
-                        dirs.values())
+    built = build_variants(cuda_build.CSRC,
+                           {name: {"mlp_tile.cuh": edits} for name, edits in variants.items()},
+                           f"probe_{route}", ("fused_mlp",))
     fns = {}
-    for name, lib in zip(dirs, libs):
-        f = lib.nerf_fused_mlp if wide else lib.nerf_fused_mlp_large
+    for name, (libs, _) in built.items():
+        f = getattr(libs["fused_mlp"], "nerf_fused_mlp" if wide else "nerf_fused_mlp_large")
         f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong),
                                                ctypes.c_void_p]
                       + [ctypes.c_int] * 8
@@ -192,9 +170,7 @@ def main(argv=None) -> int:
         fns[name] = f
 
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     Q = 1 << 20
     rng = np.random.RandomState(0)
     ep = torch.from_numpy((rng.normal(size=(Q, 63)) * 0.5).astype(np.float32)).to(
@@ -222,9 +198,7 @@ def main(argv=None) -> int:
             if err:
                 raise RuntimeError(f"{name}: K1 launch: CUDA error {err}")
 
-        times = {name: [] for name in fns}
-        for name in list(fns) + list(fns)[::-1]:
-            times[name].append(cs.cuda_ms(torch, lambda: run(name), reps=5))
+        times = in_turns(fns, lambda name: cs.cuda_ms(torch, lambda: run(name), reps=5))
         torch.cuda.synchronize()
         b_ms = cs.bound(2.0 * cs.mlp_macs_per_row(cfg) * Q, 0.0)[0]
         for name, ts in times.items():

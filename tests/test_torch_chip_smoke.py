@@ -50,6 +50,10 @@ def test_labels_name_the_instantiations():
     assert cs.kernel_label(K5_X3) == "K5 precision_dot<bf16x3>"
     assert cs.kernel_label(K1_LARGE) == "K1 fused_mlp<H>512, large route>"
     assert cs.kernel_label(K2_IPE_LARGE) == "K2 fused_raymarch<ipe, H>512, large route>"
+    assert (cs.kernel_label("_Z21kplanes_encode_kernelILi4ELi8EEvPKfiN4nerf6KpArgsEiP13__nv_bfloat16")
+            == "K3 kplanes_encode<planes 4, lines 8>")
+    assert (cs.kernel_label("_Z21kplanes_encode_kernelILi0ELi0EEvPKfiN4nerf6KpArgsEiP13__nv_bfloat16")
+            == "K3 kplanes_encode<planes any, lines any>")
 
 
 def test_entries_take_registers_spills_and_named_notes():
@@ -195,3 +199,125 @@ def test_cli_phase_writes_a_dataset_the_loaders_read_back(tmp_path):
         assert [np.array_equal(f.image, images[i].astype(np.float32) / 255.0)
                 for f, i in zip(scene.frames, idx)] == [True] * len(idx)
         np.testing.assert_allclose(scene.frames[0].K, K, rtol=1e-5)
+
+
+@pytest.mark.parametrize("F,Fl,time_res,per_row", [(8, 16, 0, 576), (4, 16, 0, 384),
+                                                   (8, 16, 8, 576 + 2 * 3 * 2 * 16),
+                                                   (1, 12, 0, 2 * 3 * 4 * 2 + 144)])
+def test_kplanes_table_bytes(F, Fl, time_res, per_row):
+    """Texel bytes K3 reads per sample: per scale 3 planes x 4 texels of F
+    bf16, 3 folds x 2 texels for a 4-D grid, 3 lines x 2 texels of Fl."""
+    from nerf_sandbox_tpu_torch.models.kplanes import KPlanesConfig
+    kcfg = KPlanesConfig((64, 128), F, 512, Fl, aabb_scale=2.0, hybrid_freqs=6,
+                         time_res=time_res)
+    assert cs.kplanes_table_bytes(kcfg) == per_row
+
+
+def test_kernel_ms_of_sums_the_matching_cuda_kernels():
+    """The profiler's device time of the kernels a name matches, in ms (the
+    events' ranges are in µs); None when no CUDA event matches."""
+    import torch
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def ev(name, dev, t0, t1):
+        return types.SimpleNamespace(name=name, device_type=dev,
+                                     time_range=types.SimpleNamespace(start=t0, end=t1))
+
+    events = [ev("void kplanes_encode_kernel<false>(...)", cuda, 10.0, 760.0),
+              ev("void kplanes_encode_kernel<false>(...)", cuda, 800.0, 900.0),
+              ev("kplanes_encode", cpu, 0.0, 5000.0),
+              ev("fused_raymarch_kernel", cuda, 0.0, 100.0)]
+    assert cs.kernel_ms_of(torch, events, "kplanes_encode") == pytest.approx(0.85)
+    assert cs.kernel_ms_of(torch, events, "precision_dot") is None
+
+
+@pytest.mark.parametrize("profiled", [None, False, 0.45])
+def test_k3_times_reads_the_device_time(monkeypatch, capsys, profiled):
+    """k3_times: the device time from the graph, the event time of one call
+    (host included) and the table read rate at the device time; when asked,
+    the profiler's kernel time, and a trace with no K3 kernel fails."""
+    import torch
+
+    from nerf_sandbox_tpu_torch.models.kplanes import KPlanesConfig
+    timed = iter([0.5, 0.8])                         # graph, events
+    monkeypatch.setattr(cs, "graph_ms", lambda torch, fn, n=100: next(timed))
+    monkeypatch.setattr(cs, "cuda_ms", lambda torch, fn, reps=10: next(timed))
+    monkeypatch.setattr(cs, "profiled_kernel_ms",
+                        lambda torch, fn, match: profiled or None)
+    ke = types.SimpleNamespace(fused_kplanes_encode=lambda g, p, e: None)
+    grid = types.SimpleNamespace(cfg=KPlanesConfig((64, 128), 8, 512, 16))
+    pts = torch.zeros((1000, 3))
+    if profiled is False:
+        with pytest.raises(cs.PhaseError, match="no K3 kernel"):
+            cs.k3_times(torch, ke, grid, pts, 128, "K3", "card", profiled=True)
+        return
+    got = cs.k3_times(torch, ke, grid, pts, 128, "K3", "card",
+                      profiled=profiled is not None)
+    assert got == (0.5, 0.8)
+    out = capsys.readouterr().out
+    assert "device 0.5000 ms" in out and "one call 0.8000 ms" in out
+    assert f"576 B a row, {576e3 / 1e9:.3f} GB = {576e3 / 0.5 / 1e9:.3f} TB/s" in out
+    assert ("profiler kernel time 0.4500 ms" in out) == (profiled is not None)
+    assert out.endswith("| card\n")
+
+
+def test_compare_builds_kp_grids():
+    """compare_builds' k-planes table sets: the 360 configuration at full
+    width (71 columns), with 4-feature planes (63), and 4-D folded at one
+    time (its time folds packed between the planes and the lines)."""
+    import torch
+
+    from nerf_sandbox_tpu_torch import compare_builds as cb
+    from nerf_sandbox_tpu_torch.models.mlp import NeRFMLP
+    from nerf_sandbox_tpu_torch.ops import kplanes_encode as ke
+    grids = cb.kp_grids(torch, ke, NeRFMLP, "cpu")
+    assert list(grids) == ["", "_f4", "_4d"]
+    assert [kc.out_dim for kc, _ in grids.values()] == [71, 63, 71]
+    _, g4 = grids["_4d"]
+    assert g4.t == 0.37 and len(g4.offsets) == 3 * 2 * 2 + 3
+    assert any("fold" in n for n in g4.views) and grids[""][1].t is None
+    assert len(ke.kp_c_args(grids["_f4"][1])) == len(ke.KP_C_ARGTYPES)
+
+
+@pytest.mark.parametrize("name", ["as built", "one texel", "no sin/cos",
+                                  "bands one at a time", "no plane tasks",
+                                  "no line tasks", "no device writes",
+                                  "cp.async.bulk copies", "zeros ahead of the rows",
+                                  "streaming stores", "256 threads a block",
+                                  "8 blocks an SM", "8 blocks, registers freed",
+                                  "8 blocks an SM at 4 features",
+                                  "registers unbounded", "one instantiation for all",
+                                  "trig stores without conflicts"])
+def test_kplanes_encode_probe_finds_its_edits(name):
+    """``probe_kplanes_encode`` edits copies of csrc/kplanes_encode.cu(h) once
+    per variant: every text it replaces is there exactly once, and every
+    variant but the unedited build changes a file."""
+    from nerf_sandbox_tpu_torch import probe_kplanes_encode as probe
+    from nerf_sandbox_tpu_torch.compare_builds import edited_sources
+    assert name in probe.VARIANTS and len(probe.VARIANTS) == 17
+    texts = edited_sources(cuda_build.CSRC, probe.VARIANTS[name])
+    assert (texts == {}) == (name == "as built")
+    for fname, text in texts.items():
+        assert text != (cuda_build.CSRC / fname).read_text()
+
+
+def test_edited_sources_takes_each_text_once(tmp_path):
+    """compare_builds.edited_sources: each edit's text replaced where it
+    stands once; a text found twice or not at all is refused."""
+    from nerf_sandbox_tpu_torch.compare_builds import edited_sources
+    (tmp_path / "a.cu").write_text("x = 1;\ny = 2;\ny = 2;\n")
+    assert edited_sources(tmp_path, {"a.cu": [("x = 1;", "x = 3;")]}) == {
+        "a.cu": "x = 3;\ny = 2;\ny = 2;\n"}
+    assert edited_sources(tmp_path, {}) == {}
+    for text in ("y = 2;", "z = 0;"):
+        with pytest.raises(ValueError, match="not in a.cu once"):
+            edited_sources(tmp_path, {"a.cu": [(text, "")]})
+
+
+def test_in_turns_times_forward_then_back():
+    """compare_builds.in_turns: the names in order, then in reverse."""
+    from nerf_sandbox_tpu_torch.compare_builds import in_turns
+    calls = []
+    times = in_turns({"a": 0, "b": 0, "c": 0}, lambda n: calls.append(n) or len(calls))
+    assert calls == ["a", "b", "c", "c", "b", "a"]
+    assert times == {"a": [1, 6], "b": [2, 5], "c": [3, 4]}

@@ -166,6 +166,7 @@ def test_k2_wide_routes_match_plain(cuda, route, wname, b):
     assert fr.fused_raymarch.launches == 1
     assert routes[route.split("_")[0]] == 1 and routes["contract"] == int(contract)
     assert routes["large"] == int(cfg.hidden_dim > 512)
+    assert fr.fused_raymarch.tile_launches == {(route.split("_")[0], 63): 1}
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.shape[0] == b
         assert torch.isfinite(g).all()
@@ -421,6 +422,50 @@ def test_k3_narrow_features_bit_identical(cuda, kname):
         want = ke.kplanes_encode_plain(kp, pts, 64)
         assert torch.equal(got, want)
         assert not got[:, kcfg.out_dim:].float().any()
+
+
+# The edges of K3's work list (csrc/kplanes_encode.cuh): the 360 default of
+# 6 bands, one and four scales, 4 plane features (the encode-only entry's
+# own instantiation) and one beside 12 line features (the one that reads
+# the group widths from its arguments), 4-D with hybrid bands, and
+# KP_MAX_BANDS bands (on the card both sides take CUDA's sinf and cosf,
+# whose arguments reach 2^31 there).
+K3_EDGES = {"hybrid6": KPlanesConfig((16, 32), 8, 64, 16, aabb_scale=2.0, hybrid_freqs=6),
+            "f4_hybrid6": KPlanesConfig((16, 32), 4, 64, 16, aabb_scale=2.0,
+                                        hybrid_freqs=6),
+            "one_scale": KPlanesConfig((16,), 8, 64, 16, aabb_scale=2.0, hybrid_freqs=2),
+            "four_scales": KPlanesConfig((8, 16, 24, 32), 8, 64, 16, aabb_scale=2.0,
+                                         hybrid_freqs=1),
+            "f1_fl12": KPlanesConfig((16, 32), 1, 64, 12, aabb_scale=2.0,
+                                     hybrid_freqs=3),
+            "4d_hybrid6": KPlanesConfig((16, 32), 8, 64, 16, aabb_scale=2.0,
+                                        hybrid_freqs=6, time_res=5),
+            "bands32": KPlanesConfig((16, 32), 8, 64, 16, aabb_scale=2.0,
+                                     hybrid_freqs=ke.MAX_BANDS)}
+
+
+@pytest.mark.parametrize("kname", K3_EDGES)
+@pytest.mark.parametrize("q", ["0", "1", "63", "65", "sweep+1"])
+@pytest.mark.parametrize("pad", [0, 24])
+def test_k3_work_list_edges_bit_identical(cuda, kname, q, pad):
+    """K3 encode-only bit for bit its plain version: rows padded to the first
+    multiple of 8 that fits (no 16-byte zero units) or 24 columns more, at 0,
+    1, 63 and 65 rows and one row past any sweep of the persistent grid (64
+    rows a block, at most 16 blocks of 128 threads an SM)."""
+    kcfg = K3_EDGES[kname]
+    ep = -(-kcfg.out_dim // 8) * 8 + pad
+    m = _kp_model(kcfg, 40, cuda, n_layers=3, hidden=128, skip=1)
+    kp = ke.pack_kplanes(m.pos_grid, kcfg, t=0.61 if kcfg.time_res else None)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = sms * 16 * 64 + 1 if q == "sweep+1" else int(q)
+    rng = np.random.RandomState(41)
+    pts = torch.from_numpy(rng.uniform(-2.3, 2.3, (n, 3)).astype(np.float32)).to(cuda)
+    want = ke.kplanes_encode_plain(kp, pts, ep)
+    before = ke.fused_kplanes_encode.launches
+    got = ke.fused_kplanes_encode(kp, pts, ep)
+    torch.cuda.synchronize()
+    assert ke.fused_kplanes_encode.launches == before + 1
+    assert got.shape == (n, ep) and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("kname", NARROW_KP)

@@ -380,10 +380,12 @@ def test_large_route_probe_finds_its_edits(name):
     from pathlib import Path
 
     from nerf_sandbox_tpu_torch import probe_large_route as probe
-    tile = (Path(tfm.__file__).resolve().parent.parent / "csrc" / "mlp_tile.cuh").read_text()
+    from nerf_sandbox_tpu_torch.compare_builds import edited_sources
+    csrc = Path(tfm.__file__).resolve().parent.parent / "csrc"
     assert set(probe.VARIANTS) == {"as is", "no epilogue stores", "no A copies",
                                    "no layer barrier", "4 A slots", "word stores"}
-    assert (probe.variant_text(tile, name) == tile) == (name == "as is")
+    edited = edited_sources(csrc, {"mlp_tile.cuh": probe.VARIANTS[name]})["mlp_tile.cuh"]
+    assert (edited == (csrc / "mlp_tile.cuh").read_text()) == (name == "as is")
 
 
 @pytest.mark.parametrize("name", ["as is", "no layer-end stores", "no sigma read-back",
@@ -395,8 +397,9 @@ def test_wide_route_probe_finds_its_edits(name):
     from pathlib import Path
 
     from nerf_sandbox_tpu_torch import probe_large_route as probe
-    tile = (Path(tfm.__file__).resolve().parent.parent / "csrc" / "mlp_tile.cuh").read_text()
+    from nerf_sandbox_tpu_torch.compare_builds import edited_sources
+    csrc = Path(tfm.__file__).resolve().parent.parent / "csrc"
     assert set(probe.WIDE_VARIANTS) == {"as is", "no layer-end stores",
                                         "no sigma read-back", "plain stores"}
-    edited = probe.variant_text(tile, name, probe.WIDE_VARIANTS)
-    assert (edited == tile) == (name == "as is")
+    edited = edited_sources(csrc, {"mlp_tile.cuh": probe.WIDE_VARIANTS[name]})
+    assert (edited["mlp_tile.cuh"] == (csrc / "mlp_tile.cuh").read_text()) == (name == "as is")

@@ -32,12 +32,25 @@ from nerf_sandbox_tpu_torch.ops import kplanes_encode as tke
 from nerf_sandbox_tpu_torch.train import checkpoints as tckpt
 
 MODES = {"static": dict(), "hybrid3": dict(hybrid_freqs=3),
-         "4d": dict(time_res=6)}
+         "4d": dict(time_res=6),
+         # the edges of K3's work list (csrc/kplanes_encode.cuh): the 360
+         # default of 6 bands, one and four scales, one plane feature beside
+         # 12 line features (texel groups of 1 and 2), 4-D with hybrid bands
+         "hybrid6": dict(hybrid_freqs=6),
+         "one_scale": dict(plane_res=(8,), hybrid_freqs=2),
+         "four_scales": dict(plane_res=(4, 8, 12, 16), hybrid_freqs=1),
+         "f1_fl12": dict(plane_features=1, line_features=12, hybrid_freqs=3),
+         "4d_hybrid6": dict(time_res=6, hybrid_freqs=6)}
+# modes whose K3 rows are padded to 64 columns; the others to the first
+# multiple of 8 that fits
+EP64 = ("static", "hybrid3", "4d")
 
 
 def _cfgs(F=4, **kw):
-    j = jk.KPlanesConfig(plane_res=(8, 16), plane_features=F, line_res=32,
-                         line_features=8, aabb_scale=2.0, **kw)
+    cfg = dict(plane_res=(8, 16), plane_features=F, line_res=32, line_features=8,
+               aabb_scale=2.0)
+    cfg.update(kw)
+    j = jk.KPlanesConfig(**cfg)
     return j, tk.KPlanesConfig(*j)
 
 
@@ -211,7 +224,7 @@ def test_plain_k3_matches_the_pallas_encode_body(mode):
         if name.startswith("plane"):
             jt = jt.transpose(1, 2, 0)            # TPU (F, R, R) -> (R, R, F)
         np.testing.assert_allclose(got, jt, rtol=2.0 ** -8, atol=0, err_msg=name)
-    ep = 64
+    ep = 64 if mode in EP64 else -(-tcfg.out_dim // 8) * 8
     h = jcfg.hybrid_freqs
     if h:
         hb = np.asarray(jenc.make_frequency_bands(h), np.float32)
@@ -223,6 +236,7 @@ def test_plain_k3_matches_the_pallas_encode_body(mode):
     ).astype(jnp.float32))
     got = tke.kplanes_encode_plain(packed, torch.from_numpy(pts), ep)
     assert got.dtype == torch.bfloat16 and got.shape == (300, ep)
+    tke.check_kernel_shapes(packed, ep)
     got = got.float().numpy()
     assert np.all(got[:, packed.cfg.out_dim:] == 0.0)
     assert np.all(np.abs(got - want) <= 2.0 ** -7 * np.maximum(1.0, np.abs(want)))
@@ -232,6 +246,25 @@ def test_plain_k3_matches_the_pallas_encode_body(mode):
                                     device="cpu")
     assert torch.equal(same.float(), torch.from_numpy(got))
     assert tke.fused_kplanes_encode.launches == before
+
+
+def test_packed_tables_carry_their_c_arguments():
+    """pack_kplanes builds the kernels' ctypes arguments once; the launches
+    reuse them (the table pointer, offsets, resolutions and bands), and new
+    ones describe a replaced buffer."""
+    jcfg, tcfg = _cfgs(F=8, hybrid_freqs=3)
+    packed = tke.pack_kplanes(_t(_tables(jcfg)), tcfg)
+    args = tke.kp_c_args(packed)
+    assert len(args) == len(tke.KP_C_ARGTYPES) == len(packed.c_args)
+    assert all(a is b for a, b in zip(args, packed.c_args))
+    assert args[0].value == packed.flat.data_ptr()
+    assert list(args[1]) == list(packed.offsets)
+    assert list(args[2]) == list(tcfg.plane_res) and args[3:8] == [2, 8, 32, 8, 0]
+    assert list(args[9])[:3] == [1.0, 2.0, 4.0] and args[10] == 3
+    moved = packed._replace(flat=packed.flat.clone())
+    fresh = tke.kp_c_args(moved)
+    assert fresh[0].value == moved.flat.data_ptr() != args[0].value
+    assert list(fresh[1]) == list(packed.offsets) and fresh[3:8] == args[3:8]
 
 
 def test_kernel_shape_checks():
