@@ -158,7 +158,13 @@ Phases (any failure exits non-zero):
    --use_tb`` for 40 steps (the loss must fall, the events as in 11a), and
    the committed JPEG at that size decoded bit-equal to imageio's pixels
    (sha256) and timed; the seconds of TensorBoard writing per event and of
-   GIF packing per frame;
+   GIF packing per frame; 11c, fern from JPEGs (``phase_jpeg_tail``): the
+   fixtures of ``tests/golden/jpeg_tail`` (the 8 fern-size views as
+   progressive, optimized with restarts, smoothed, arithmetic sequential
+   and progressive, 4:4:0, 4:1:1 and chroma-above-luma files; small CMYK,
+   YCCK and lossless ones) decoded to imageio's sha256, each timed, the 8
+   refused kinds raising; then the fern flags on those 8 views for 30
+   steps (the loss must fall, K2 only the probe's 2);
 12. slice 9, SH view directions, appearance codes and camera refinement:
    12a, K2 on phase 4's fine tile with seeded 8x256 models whose view
    directions are SH-encoded at degrees 4, 1, 2 and 3 (16, 1, 4, 9
@@ -3567,6 +3573,92 @@ def phase_quickstart(torch, card, figures, rendered):
         if undo is not None:
             undo()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- phase 11c
+
+JPEG_TAIL = os.path.join("tests", "golden", "jpeg_tail")
+JPEG_STEPS = 30
+
+
+def phase_jpeg_tail(torch, card):
+    """11c, fern from JPEGs: every fixture of ``tests/golden/jpeg_tail``
+    (written by ``tests/golden/gen_jpeg_tail.py``: ``write_llff_scene``'s
+    eight 504x378 views, one JPEG kind each, and small CMYK, YCCK and
+    lossless files) decoded by ``data/jpeg.py`` to the sha256, shape and
+    dtype of imageio's array, each timed; each refused kind raising as
+    imageio does; then the fern scene with those eight views as its
+    ``images_8`` through the README's fern flags, ``JPEG_STEPS`` steps: the
+    loss must fall and K2 launch only for the probe."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from nerf_sandbox_tpu_torch.data.jpeg import read_jpeg
+    from nerf_sandbox_tpu_torch.ops import fused_raymarch as fr
+    from nerf_sandbox_tpu_torch.scripts.train_nerf import run as train_nerf
+
+    t_phase = time.perf_counter()
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), JPEG_TAIL)
+    with open(os.path.join(here, "manifest.json")) as f:
+        manifest = json.load(f)
+    bad = []
+    for name, want in manifest["decoded"].items():
+        t0 = time.perf_counter()
+        arr = read_jpeg(os.path.join(here, name))
+        dt = time.perf_counter() - t0
+        ok = (hashlib.sha256(arr.tobytes()).hexdigest() == want["sha256"]
+              and list(arr.shape) == want["shape"] and str(arr.dtype) == want["dtype"])
+        bad += [] if ok else [name]
+        print(f"[jpeg tail] {name}: {'x'.join(map(str, arr.shape))} {arr.dtype} in "
+              f"{dt:.3f} s on this host, equal to imageio's (sha256): {ok}", flush=True)
+    check(not bad, f"11c: {bad} decode unlike imageio")
+    raised = {}
+    for name in manifest["refused"]:
+        try:
+            read_jpeg(os.path.join(here, name))
+            raised[name] = "decoded"
+        except ValueError as e:
+            raised[name] = "raised" if "refuses it too" in str(e) else str(e)
+    print(f"[jpeg tail] the kinds imageio refuses raise: {raised}", flush=True)
+    check(set(raised.values()) == {"raised"}, f"11c: refused kinds {raised}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_jpeg_")
+    try:
+        fern = os.path.join(tmp, "fern")
+        write_llff_scene(fern)
+        d8 = os.path.join(fern, "images_8")
+        for png, view in zip(sorted(os.listdir(d8)), manifest["views"]):
+            os.remove(os.path.join(d8, png))
+            shutil.copy(os.path.join(here, view), os.path.join(d8, png[:-4] + ".jpg"))
+        out = os.path.join(tmp, "exp", "fern_jpeg")
+        argv = ["--data_kind", "llff", "--data_root", fern, "--downscale", "8",
+                "--use_ndc", "--ndc_near_plane_world", "1.0", "--vanilla", "--use_tb",
+                "--out_dir", out, "--max_steps", str(JPEG_STEPS), "--num_val_steps", "1",
+                "--log_every", str(QS_LOG)]
+        torch.cuda.synchronize()
+        fr.reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_nerf(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k2 = fr.fused_raymarch.launches
+        st = trainer.run_stats
+        losses = [v for _, v in st["losses"]]
+        first = float(st["first_loss"])
+        print(f"[jpeg tail] fern from the 8 JPEG views ({', '.join(manifest['views'])}): "
+              f"{' '.join(argv[4:])}: {st['steps']} steps in {wall:.2f} s in main, loss "
+              f"{first:.6f} at step 1 -> {losses} at {[s for s, _ in st['losses']]}; K2 "
+              f"launches {k2} (probe {k2_launches(8, 8)}) | {card}", flush=True)
+        check(np.isfinite([first] + losses).all() and losses[-1] < first,
+              f"11c: the fern loss did not fall: {first} -> {losses}")
+        check(k2 == k2_launches(8, 8), f"11c: K2 launched {k2}, the probe makes 2")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[jpeg tail] phase 11c took {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return {"fused_raymarch": k2}
 
 
 # ---------------------------------------------------------------- phase 12
@@ -7069,6 +7161,9 @@ def run(torch, root):
 
     # ---- 11. the README's Quickstart: Blender and fern ----
     launches_qs = phase_quickstart(torch, card, figures, frames)
+
+    # ---- 11c. fern from JPEGs past baseline ----
+    phase_jpeg_tail(torch, card)
 
     # ---- 12. slice 9: SH directions, appearance codes, camera refinement ----
     t0 = time.perf_counter()

@@ -27,22 +27,18 @@ from typing import List
 import numpy as np
 
 from nerf_sandbox_tpu_torch.data.png import read_pngs
-from nerf_sandbox_tpu_torch.data.resize import area_resize, block_mean
+from nerf_sandbox_tpu_torch.data.resize import area_resize
 from nerf_sandbox_tpu_torch.data.scene import Frame, Scene
 
 
 def area_downscale(img: np.ndarray, factor: int) -> np.ndarray:
-    """(H, W[, C]) → float32 (H // factor, W // factor[, C]), cv2's
-    INTER_AREA at a whole ratio (:func:`block_mean`). A frame that
-    ``factor`` does not divide raises: :func:`area_resize` weights the
-    partial pixels as cv2 does."""
+    """(H, W[, C]) → float32 (H // factor, W // factor[, C]), the JAX
+    loader's ``cv2.resize(img, (W // factor, H // factor), INTER_AREA)``
+    (:func:`area_resize`: a block mean where ``factor`` divides the frame,
+    the partial pixels weighted by their overlap where it does not)."""
     f = int(factor)
     H, W = img.shape[:2]
-    if H % f or W % f:
-        raise NotImplementedError(
-            f"downscale {f} of a {H}x{W} frame leaves partial blocks: "
-            "area_resize weights them (P3)")
-    return block_mean(img, f, f)
+    return area_resize(img.astype(np.float32), (W // f, H // f))
 
 
 class BlenderSceneLoader:
@@ -60,10 +56,7 @@ class BlenderSceneLoader:
 
     def _to_float(self, img: np.ndarray) -> np.ndarray:
         img = img.astype(np.float32) / 255.0
-        if self.downscale > 1:
-            H, W = img.shape[:2]
-            img = area_resize(img, (W // self.downscale, H // self.downscale))
-        return img
+        return area_downscale(img, self.downscale) if self.downscale > 1 else img
 
     @staticmethod
     def _intrinsics(W: int, H: int, camera_angle_x: float) -> np.ndarray:

@@ -1,31 +1,42 @@
-"""Baseline JPEG decoding with numpy.
+"""JPEG decoding with numpy: every file ``imageio.v2.imread`` reads.
 
 Stands in for ``imageio.v2.imread`` on JPEG files, which the JAX package's
 LLFF loader (``nerf_sandbox_tpu/data/llff_loader.py``) reads through Pillow
 and libjpeg-turbo, and which the port does without. The arithmetic is
-libjpeg-turbo's, so the arrays are bit-equal to ``imageio.v2.imread``'s:
+libjpeg-turbo's, so the arrays are bit-equal to ``imageio.v2.imread``'s, in
+value, dtype and shape:
 
+* the entropy decoding of every process Pillow's libjpeg-turbo reads:
+  sequential and progressive, Huffman- (:mod:`jpeg_huffman`) or
+  arithmetic-coded (:mod:`jpeg_arith`), and 8-bit lossless
+  (:mod:`jpeg_lossless`), with restart intervals;
+* block smoothing of a progressive file whose scans leave low-frequency
+  AC bits unsent (:mod:`jpeg_smooth`, ``jdcoefct.c``);
 * the integer "islow" inverse DCT (``jidctint.c``), its outputs wrapped
   through the IDCT range-limit table as the library indexes it;
-* fancy (triangle) upsampling of 2x1 and 2x2 chroma (``jdsample.c``:
-  ``h2v1_fancy_upsample``, ``h2v2_fancy_upsample``, edge samples
-  replicated; plain replication when the chroma plane is at most 2 samples
-  wide, as the library chooses);
-* YCbCr to RGB through its fixed-point tables (``jdcolor.c``, 16 fraction
-  bits); a 3-component file is RGB instead when an Adobe marker says
-  transform 0, or, without JFIF and Adobe markers, when its component ids
-  are 'R', 'G', 'B' (``jdapimin.c``).
+* upsampling at every whole sampling ratio as ``jdsample.c`` chooses it:
+  fancy (triangle) 2x1 and 2x2 when the plane is more than 2 samples wide,
+  fancy 1x2 (4:4:0), plain replication otherwise (lossless files have no
+  fancy upsampling); luma need not have the largest factors;
+* colour: YCbCr to RGB through the library's fixed-point tables
+  (``jdcolor.c``, 16 fraction bits); a 3-component file is RGB instead when
+  an Adobe marker says transform 0, or, without JFIF and Adobe markers,
+  when its component ids are 'R', 'G', 'B' (``jdapimin.c``). 4 components
+  are CMYK, or YCCK turned to CMYK when an Adobe marker says a transform
+  other than 0 (``ycck_cmyk_convert``); Pillow then inverts all four
+  channels (rawmode ``CMYK;I``) and imageio returns (H, W, 4).
 
-Scope: sequential Huffman-coded files (SOF0, SOF1), 8-bit samples, 1 or 3
-components, luma sampling 1x1, 2x1 or 2x2 over 1x1 chroma, interleaved or
-one-component scans, restart intervals. EXIF orientation is ignored, as
-``imageio.v2.imread`` ignores it by default. Progressive, lossless,
-hierarchical, arithmetic-coded and 12-bit files, and other component counts
-or sampling factors, raise ``NotImplementedError`` naming the file; a
-damaged file raises ``ValueError`` naming it.
+What imageio refuses, this raises on too (``ValueError`` naming the file):
+precision other than 8 bits and component counts other than 1, 3 or 4
+(Pillow, ``PIL/JpegImagePlugin.py:SOF``), hierarchical and arithmetic
+lossless processes, a height left to a DNL marker, sampling factors outside
+1-4 or at a fractional ratio, an interleaved MCU of more than 10 blocks,
+and lossless restart intervals that split an MCU row (libjpeg-turbo). A
+damaged file raises ``ValueError`` naming it. EXIF orientation is ignored,
+as ``imageio.v2.imread`` ignores it by default.
 
-The Huffman decoding is a Python loop over the coded symbols with a 16-bit
-lookup table per code; everything after it is numpy over all blocks at once.
+The entropy decoding is a Python loop over the coded symbols or decisions;
+everything after it is numpy over all blocks at once.
 """
 
 from __future__ import annotations
@@ -36,6 +47,8 @@ from pathlib import Path
 
 import numpy as np
 
+from nerf_sandbox_tpu_torch.data import jpeg_arith, jpeg_huffman, jpeg_lossless, jpeg_smooth
+
 # zig-zag position -> natural (row-major) position in the 8x8 block
 ZIGZAG = np.array([
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
@@ -43,16 +56,42 @@ ZIGZAG = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
-_SOF_NAMES = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical",
-              0xC6: "hierarchical progressive", 0xC7: "hierarchical lossless",
-              0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded progressive",
-              0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded hierarchical",
-              0xCE: "arithmetic-coded hierarchical progressive",
-              0xCF: "arithmetic-coded hierarchical lossless"}
+REFUSED = "imageio.v2.imread (Pillow, libjpeg-turbo) refuses it too"
+# SOF marker -> (progressive, arithmetic, lossless)
+_PROCESS = {0xC0: (False, False, False), 0xC1: (False, False, False),
+            0xC2: (True, False, False), 0xC3: (False, False, True),
+            0xC9: (False, True, False), 0xCA: (True, True, False)}
+_REFUSED_SOF = {0xC5: "hierarchical", 0xC6: "hierarchical progressive",
+                0xC7: "hierarchical lossless", 0xC8: "JPG-extension",
+                0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded hierarchical",
+                0xCE: "arithmetic-coded hierarchical progressive",
+                0xCF: "arithmetic-coded hierarchical lossless",
+                0xDE: "hierarchical (DHP)"}
 # the end of an entropy-coded segment: 0xFF followed by neither a stuffed
 # zero, nor a restart marker, nor a fill byte
 _SEGMENT_END = re.compile(rb"\xff[^\x00\xd0-\xd7\xff]")
 _RESTART = re.compile(rb"\xff[\xd0-\xd7]")
+_STUFFED = re.compile(rb"\xff+\x00")
+# T.81 Annex K.3's tables (libjpeg-turbo's ``std_huff_tables``), for the
+# slots 0 and 1 that a sequential file (Motion JPEG) leaves undefined:
+# (class, slot) -> (counts, symbols)
+_STD_HUFFMAN = {
+    (0, 0): ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), bytes(range(12))),
+    (0, 1): ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0), bytes(range(12))),
+    (1, 0): ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125), bytes.fromhex(
+        "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+        "2433627282090a161718191a25262728292a3435363738393a43444546474849"
+        "4a535455565758595a636465666768696a737475767778797a83848586878889"
+        "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5"
+        "c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")),
+    (1, 1): ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119), bytes.fromhex(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+        "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+        "494a535455565758595a636465666768696a737475767778797a828384858687"
+        "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+        "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"))}
+MAX_BLOCKS_IN_MCU = 10
+PILLOW_MAXBLOCK = 65536          # PIL/ImageFile.py: MAXBLOCK, the read size of a decode
 
 # jidctint.c's constants: FIX(x) = round(x * 2^13)
 _F0298, _F0390, _F0541, _F0765 = 2446, 3196, 4433, 6270
@@ -71,87 +110,6 @@ def _range_limit_table() -> np.ndarray:
 
 
 _RANGE_LIMIT = _range_limit_table()
-
-
-def _huffman_lut(counts, symbols, path):
-    """Canonical Huffman code → a 65536-entry list: the entry of every 16-bit
-    window that starts with a code holds (length << 8) | symbol, 0 for
-    windows that start with no code."""
-    lut = np.zeros(1 << 16, np.int64)
-    code, k = 0, 0
-    for length in range(1, 17):
-        for _ in range(counts[length - 1]):
-            if code >= (1 << length):
-                raise ValueError(f"{path}: bad Huffman table")
-            lo = code << (16 - length)
-            lut[lo:lo + (1 << (16 - length))] = (length << 8) | symbols[k]
-            code, k = code + 1, k + 1
-        code <<= 1
-    return lut.tolist()
-
-
-def _segments(data: bytes, start: int, path):
-    """The entropy-coded data from ``start`` → (its restart intervals with
-    stuffed zeros removed, the position of the marker that ends it)."""
-    m = _SEGMENT_END.search(data, start)
-    if m is None:
-        raise ValueError(f"{path}: entropy-coded data runs past the end of the file")
-    seg = data[start:m.start()].rstrip(b"\xff")
-    return [p.replace(b"\xff\x00", b"\xff") for p in _RESTART.split(seg)], m.start()
-
-
-def _decode_scan(intervals, order, tables, blocks_per_interval, coefs, path):
-    """Huffman-decode one scan into ``coefs`` (a flat list, 64 zig-zag
-    coefficients per block). ``order`` lists, in coding order, (block offset
-    into ``coefs``, component slot); ``tables`` holds each slot's (DC lut,
-    AC lut)."""
-    n = len(order)
-    if len(intervals) < -(-n // blocks_per_interval):
-        raise ValueError(f"{path}: fewer restart intervals than the image needs")
-    for iv in range(-(-n // blocks_per_interval)):
-        buf = intervals[iv] + b"\x00" * 8
-        pos, pred = 0, [0] * len(tables)
-        for base, slot in order[iv * blocks_per_interval:(iv + 1) * blocks_per_interval]:
-            dc_lut, ac_lut = tables[slot]
-            k, lut = 0, dc_lut
-            while k < 64:
-                b = pos >> 3
-                w = int.from_bytes(buf[b:b + 5], "big")
-                r = 40 - (pos & 7)
-                e = lut[(w >> (r - 16)) & 0xFFFF]
-                if not e:
-                    raise ValueError(f"{path}: bad Huffman code")
-                length = e >> 8
-                s = e & 15
-                if k == 0:                                  # DC difference
-                    v = 0
-                    if s:
-                        v = (w >> (r - length - s)) & ((1 << s) - 1)
-                        if v < (1 << (s - 1)):
-                            v -= (1 << s) - 1
-                    pos += length + s
-                    pred[slot] += v
-                    coefs[base] = pred[slot]
-                    k, lut = 1, ac_lut
-                    continue
-                run = (e >> 4) & 15
-                pos += length
-                if s == 0:
-                    if run != 15:                           # end of block
-                        break
-                    k += 16
-                    continue
-                k += run
-                if k > 63:
-                    raise ValueError(f"{path}: coefficient index past 63")
-                v = (w >> (r - length - s)) & ((1 << s) - 1)
-                if v < (1 << (s - 1)):
-                    v -= (1 << s) - 1
-                pos += s
-                coefs[base + k] = v
-                k += 1
-            if pos > 8 * (len(buf) - 8):
-                raise ValueError(f"{path}: entropy-coded data ends early")
 
 
 def _idct_pass(c, shift):
@@ -198,103 +156,323 @@ def _fancy_h2(p: np.ndarray, bias_even: int, bias_odd: int, shift: int) -> np.nd
     return out
 
 
-def _upsample(p: np.ndarray, h: int, v: int) -> np.ndarray:
-    """A (compH, compW) uint8 chroma plane → h x v times its size."""
-    if (h, v) == (1, 1):
+def _upsample(p: np.ndarray, rh: int, rv: int, fancy: bool) -> np.ndarray:
+    """A (compH, compW) uint8 plane → ``rh`` x ``rv`` times its size, by the
+    method ``jdsample.c:jinit_upsampler`` picks for the ratio."""
+    if (rh, rv) == (1, 1):
         return p
-    if p.shape[1] <= 2:                               # plain replication
-        return np.repeat(np.repeat(p, v, axis=0), h, axis=1)
     q = p.astype(np.int64)
-    if v == 1:
+    if fancy and (rh, rv) == (2, 1) and p.shape[1] > 2:
         return _fancy_h2(q, 1, 2, 2).astype(np.uint8)
-    above = np.concatenate([q[:1], q[:-1]], axis=0)
-    below = np.concatenate([q[1:], q[-1:]], axis=0)
-    cols = np.empty((2 * q.shape[0], q.shape[1]), np.int64)
-    cols[0::2] = 3 * q + above
-    cols[1::2] = 3 * q + below
-    return _fancy_h2(cols, 8, 7, 4).astype(np.uint8)
+    if fancy and (rh, rv) in ((1, 2), (2, 2)) and (rh == 1 or p.shape[1] > 2):
+        above = np.concatenate([q[:1], q[:-1]], axis=0)
+        below = np.concatenate([q[1:], q[-1:]], axis=0)
+        cols = np.empty((2 * q.shape[0], q.shape[1]), np.int64)
+        cols[0::2] = 3 * q + above
+        cols[1::2] = 3 * q + below
+        if rh == 1:                                   # h1v2_fancy_upsample
+            cols[0::2] += 1
+            cols[1::2] += 2
+            return (cols >> 2).astype(np.uint8)
+        return _fancy_h2(cols, 8, 7, 4).astype(np.uint8)
+    return np.repeat(np.repeat(p, rv, axis=0), rh, axis=1)
 
 
-def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
-    """``jdcolor.c``'s fixed-point YCbCr → RGB (16 fraction bits)."""
+def _ycc(y, cb, cr):
+    """``jdcolor.c``'s fixed-point YCbCr → R, G, B (16 fraction bits), int64
+    and not yet clamped."""
     y = y.astype(np.int64)
     cb = cb.astype(np.int64) - 128
     cr = cr.astype(np.int64) - 128
-    r = y + ((91881 * cr + 32768) >> 16)
-    g = y + ((-22554 * cb + 32768 - 46802 * cr) >> 16)
-    b = y + ((116130 * cb + 32768) >> 16)
-    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+    return (y + ((91881 * cr + 32768) >> 16),
+            y + ((-22554 * cb + 32768 - 46802 * cr) >> 16),
+            y + ((116130 * cb + 32768) >> 16))
 
 
-def read_jpeg(path) -> np.ndarray:
-    """Decode a baseline JPEG → uint8 (H, W) gray or (H, W, 3) RGB, as
-    ``imageio.v2.imread`` returns it."""
-    data = Path(path).read_bytes()
+def _colour(planes, jfif, adobe, ids, lossless) -> np.ndarray:
+    """The upsampled planes → the array imageio returns. A lossless file
+    without markers is RGB whatever its ids; libjpeg-turbo converts no
+    colours in lossless mode, so a lossless YCbCr or YCCK file is refused."""
+    if len(planes) == 1:
+        return planes[0]
+    if lossless and (jfif or adobe not in (None, 0)):
+        raise ValueError(f"lossless JPEG in {('YCbCr', 'YCCK')[len(planes) == 4]}, which "
+                         f"needs a colour conversion; {REFUSED}")
+    if len(planes) == 3:
+        rgb = adobe == 0 if not jfif and adobe is not None else (
+            not jfif and adobe is None and (lossless or ids == [82, 71, 66]))
+        if rgb:
+            return np.stack(planes, axis=-1)
+        return np.clip(np.stack(_ycc(*planes), axis=-1), 0, 255).astype(np.uint8)
+    if adobe not in (None, 0):                        # YCCK → CMYK
+        cmy = [np.clip(255 - x, 0, 255) for x in _ycc(*planes[:3])]
+        planes = [x.astype(np.uint8) for x in cmy] + [planes[3]]
+    return 255 - np.stack(planes, axis=-1)            # Pillow's "CMYK;I"
+
+
+def _segments(data: bytes, start: int):
+    """The entropy-coded data from ``start`` → (its restart intervals with
+    stuffed zeros removed, each interval's (first byte, position of the
+    code byte of the marker that ends it), the position of the marker after
+    the data)."""
+    m = _SEGMENT_END.search(data, start)
+    if m is None:
+        raise ValueError("entropy-coded data runs past the end of the file")
+    parts, spans, at = [], [], start
+    for r in _RESTART.finditer(data, start, m.start()):
+        parts.append(data[at:r.start()])
+        spans.append((at, r.start() + 1))
+        at = r.end()
+    parts.append(data[at:m.start()])
+    spans.append((at, m.start() + 1))
+    return [_STUFFED.sub(b"\xff", p.rstrip(b"\xff")) for p in parts], spans, m.start()
+
+
+def _readable(buf, first, code, end):
+    """How many bytes the arithmetic decoder may take from ``buf``, an
+    interval whose data starts at byte ``first`` of the file and whose
+    marker's code byte is at ``code``, before it needs byte ``end`` or
+    later; None when it never does. A stuffed 0xFF takes its zero along;
+    reading past the data reads the marker."""
+    raw_end = first + np.arange(len(buf)) + np.cumsum(np.frombuffer(buf, np.uint8) == 0xFF)
+    n = int(np.searchsorted(raw_end, end))
+    return None if n == len(buf) and code < end else n
+
+
+def _scan_order(comps, mcux, mcuy, unit):
+    """The units (blocks of 64 coefficients, or lossless samples) of a scan
+    in coding order → ([(offset, slot)], units per MCU). One component:
+    its own grid, row by row; several: MCU by MCU, each component's
+    v x h units in turn."""
+    if len(comps) == 1:
+        c = comps[0]
+        by, bx = np.mgrid[0:c["hib"], 0:c["wib"]]
+        return [(o, 0) for o in (c["offset"] + unit * (by * c["bw"] + bx)).ravel().tolist()], 1
+    cols = []
+    for slot, c in enumerate(comps):
+        my, mx, v, h = np.meshgrid(np.arange(mcuy), np.arange(mcux), np.arange(c["v"]),
+                                   np.arange(c["h"]), indexing="ij")
+        off = c["offset"] + unit * ((my * c["v"] + v) * c["bw"] + mx * c["h"] + h)
+        cols.append((off.reshape(mcuy * mcux, -1), slot))
+    per_mcu = sum(o.shape[1] for o, _ in cols)
+    offs = np.concatenate([o for o, _ in cols], axis=1).reshape(-1)
+    slots = np.concatenate([np.full(o.shape, s) for o, s in cols], axis=1).reshape(-1)
+    return list(zip(offs.tolist(), slots.tolist())), per_mcu
+
+
+class _Decoder:
+    """The decoder's state through the markers of one file."""
+
+    def __init__(self):
+        self.qt, self.luts = {}, {}
+        self.dc_cond = {t: (0, 1) for t in range(16)}     # DAC defaults L, U
+        self.ac_cond = {t: 5 for t in range(16)}          # and Kx
+        self.restart, self.jfif, self.adobe = 0, False, None
+        self.frame, self.comps, self.coefs = None, [], None
+
+    def lut(self, tc, th, standard=False):
+        """Huffman table ``th`` of class ``tc`` (0 DC, 1 AC); ``standard``:
+        fall back to T.81's, as libjpeg-turbo does for sequential scans."""
+        if standard and (tc, th) not in self.luts and (tc, th) in _STD_HUFFMAN:
+            counts, symbols = _STD_HUFFMAN[tc, th]
+            self.luts[tc, th] = jpeg_huffman.huffman_lut(counts, symbols)
+        if (tc, th) not in self.luts:
+            raise ValueError(f"scan names undefined Huffman table {('DC', 'AC')[tc]}{th}")
+        return self.luts[tc, th]
+
+    def start_frame(self, marker, seg):
+        if self.frame is not None:
+            raise ValueError("a second frame header")
+        if marker in _REFUSED_SOF:
+            raise ValueError(f"{_REFUSED_SOF[marker]} JPEG; {REFUSED}")
+        precision, H, W, nf = struct.unpack(">BHHB", seg[:6])
+        if precision != 8:
+            raise ValueError(f"{precision}-bit JPEG; {REFUSED}")
+        if nf not in (1, 3, 4):
+            raise ValueError(f"JPEG with {nf} components; {REFUSED}")
+        if H == 0:
+            raise ValueError(f"JPEG whose height is left to a DNL marker; {REFUSED}")
+        if W == 0 or len(seg) < 6 + 3 * nf:
+            raise ValueError("bad frame header")
+        progressive, arith, lossless = _PROCESS[marker]
+        for i in range(nf):
+            cid, hv, tq = seg[6 + 3 * i:9 + 3 * i]
+            self.comps.append({"id": cid, "h": hv >> 4, "v": hv & 15, "tq": tq,
+                               "bits": [-1] * 64})
+        factors = [(c["h"], c["v"]) for c in self.comps]
+        if not all(1 <= h <= 4 and 1 <= v <= 4 for h, v in factors):
+            raise ValueError(f"JPEG sampling factors {factors} outside 1-4; {REFUSED}")
+        hmax, vmax = max(h for h, _ in factors), max(v for _, v in factors)
+        if any(hmax % h or vmax % v for h, v in factors):
+            raise ValueError(f"JPEG sampling {factors} at a fractional ratio; {REFUSED}")
+        unit = 1 if lossless else 8
+        mcux, mcuy = -(-W // (unit * hmax)), -(-H // (unit * vmax))
+        offset = 0
+        for c in self.comps:
+            c["bw"], c["bh"] = mcux * c["h"], mcuy * c["v"]
+            c["cw"], c["ch"] = -(-W * c["h"] // hmax), -(-H * c["v"] // vmax)
+            c["wib"], c["hib"] = -(-c["cw"] // unit), -(-c["ch"] // unit)
+            c["offset"] = offset
+            offset += c["bw"] * c["bh"] * unit * unit
+        self.coefs = [0] * offset
+        self.frame = dict(H=H, W=W, hmax=hmax, vmax=vmax, mcux=mcux, mcuy=mcuy, unit=unit,
+                          progressive=progressive, arith=arith, lossless=lossless)
+
+    def scan(self, seg, data, pos):
+        """An SOS segment and its entropy-coded data from ``pos`` → the
+        position of the marker after it."""
+        f = self.frame
+        if f is None:
+            raise ValueError("scan before the frame header")
+        ns = seg[0]
+        if not 1 <= ns <= 4 or len(seg) < 4 + 2 * ns:
+            raise ValueError("bad scan header")
+        comps, tables = [], []
+        for i in range(ns):
+            cs, t = seg[1 + 2 * i:3 + 2 * i]
+            c = next((c for c in self.comps if c["id"] == cs), None)
+            if c is None or c in comps:
+                raise ValueError(f"scan names unknown or repeated component {cs}")
+            comps.append(c)
+            tables.append((t >> 4, t & 15))
+        ss, se, a = seg[1 + 2 * ns:4 + 2 * ns]
+        ah, al = a >> 4, a & 15
+        if ns > 1 and sum(c["h"] * c["v"] for c in comps) > MAX_BLOCKS_IN_MCU:
+            raise ValueError(f"an interleaved MCU of more than {MAX_BLOCKS_IN_MCU} blocks; "
+                             f"{REFUSED}")
+        intervals, spans, end = _segments(data, pos)
+        order, per_mcu = _scan_order(comps, f["mcux"], f["mcuy"], f["unit"] ** 2)
+        per = self.restart * per_mcu if self.restart else len(order)
+        if f["lossless"]:
+            self._lossless_scan(comps, tables, intervals, order, per, ss, al)
+            return end
+        for c in comps:                      # quantization tables latch at a first scan
+            if "q" not in c:
+                if c["tq"] not in self.qt:
+                    raise ValueError(f"no quantization table {c['tq']}")
+                c["q"] = self.qt[c["tq"]]
+        if f["progressive"]:
+            if ((ss == 0 and se != 0) or (ss > 0 and (se < ss or se > 63 or ns != 1))
+                    or (ah and al != ah - 1) or al > 13):
+                raise ValueError(f"bad progressive scan (Ss {ss}, Se {se}, Ah {ah}, Al {al})")
+            for c in comps:
+                c["bits"][ss:se + 1] = [al] * (se + 1 - ss)
+        if f["arith"]:
+            # Pillow hands libjpeg-turbo the file in MAXBLOCK pieces, and the
+            # arithmetic decoder cannot wait for the next: a scan fails when
+            # it needs a byte past the piece in which it started
+            piece_end = ((pos - 1) // PILLOW_MAXBLOCK + 1) * PILLOW_MAXBLOCK
+            try:
+                jpeg_arith.decode_scan(intervals, order, tables, per, self.coefs,
+                                       (self.dc_cond, self.ac_cond), f["progressive"],
+                                       ss, se, ah, al,
+                                       [_readable(b, *span, piece_end)
+                                        for b, span in zip(intervals, spans)])
+            except jpeg_arith.ReadLimit:
+                raise ValueError(f"arithmetic-coded scan from byte {pos} needs byte "
+                                 f"{piece_end} or later, past the {PILLOW_MAXBLOCK}-byte "
+                                 f"piece Pillow reads it in; {REFUSED}") from None
+        elif not f["progressive"]:
+            luts = [(self.lut(0, d, True), self.lut(1, a, True)) for d, a in tables]
+            jpeg_huffman.sequential(intervals, order, luts, per, self.coefs)
+        elif ss == 0 and ah == 0:
+            jpeg_huffman.dc_first(intervals, order, [self.lut(0, d) for d, _ in tables], per,
+                                  self.coefs, al)
+        elif ss == 0:
+            jpeg_huffman.dc_refine(intervals, order, per, self.coefs, al)
+        elif ah == 0:
+            jpeg_huffman.ac_first(intervals, order, self.lut(1, tables[0][1]), per,
+                                  self.coefs, ss, se, al)
+        else:
+            jpeg_huffman.ac_refine(intervals, order, self.lut(1, tables[0][1]), per,
+                                   self.coefs, ss, se, al)
+        return end
+
+    def _lossless_scan(self, comps, tables, intervals, order, per, psv, al):
+        f = self.frame
+        if not 1 <= psv <= 7 or al >= 8:
+            raise ValueError(f"bad lossless scan (predictor {psv}, point transform {al})")
+        per_row = f["mcux"] if len(comps) > 1 else comps[0]["wib"]
+        if self.restart % per_row:
+            raise ValueError(f"a lossless restart interval of {self.restart} MCUs in rows of "
+                             f"{per_row}; {REFUSED}")
+        diffs = jpeg_lossless.differences(intervals, order, [self.lut(0, d) for d, _ in tables],
+                                          per, len(self.coefs))
+        rows_per_restart = self.restart // per_row if self.restart else None
+        for c in comps:
+            # (re)starts come at MCU rows; each resets the prediction of the
+            # first row of the iMCU row it falls in
+            v = c["v"]
+            if len(comps) > 1:
+                starts = range(0, f["mcuy"], rows_per_restart or f["mcuy"])
+                first = {m * v for m in starts}
+            else:
+                starts = range(0, c["hib"], rows_per_restart or c["hib"])
+                first = {r // v * v for r in starts}
+            d = np.array(diffs[c["offset"]:c["offset"] + c["bw"] * c["bh"]], np.int64)
+            d = d.reshape(c["bh"], c["bw"])[:c["hib"], :c["wib"]]
+            x = jpeg_lossless.undifference(d, first, psv, 1 << (7 - al))
+            c["plane"] = ((x << al) & 0xFF).astype(np.uint8)
+
+    def image(self) -> np.ndarray:
+        f = self.frame
+        if f is None:
+            raise ValueError("no frame header")
+        smooth = f["progressive"] and jpeg_smooth.smoothing_ok(self.comps)
+        planes = []
+        for c in self.comps:
+            if f["lossless"]:
+                plane = c.get("plane")
+                if plane is None:
+                    plane = np.zeros((c["ch"], c["cw"]), np.uint8)
+            else:
+                n = c["bw"] * c["bh"] * 64
+                zz = np.array(self.coefs[c["offset"]:c["offset"] + n], np.int64).reshape(
+                    c["bh"], c["bw"], 64)
+                q = c.get("q", np.zeros(64, np.int64))
+                if smooth:
+                    blocks = jpeg_smooth.smooth(zz, c, q, f["mcuy"])
+                else:
+                    blocks = zz[:c["hib"], :c["wib"]]
+                nat = np.empty_like(blocks)
+                nat[..., ZIGZAG] = blocks * q
+                pix = _idct_islow(nat.reshape(c["hib"], c["wib"], 8, 8))
+                plane = pix.transpose(0, 2, 1, 3).reshape(8 * c["hib"], 8 * c["wib"])
+                plane = plane[:c["ch"], :c["cw"]]
+            planes.append(_upsample(plane, f["hmax"] // c["h"], f["vmax"] // c["v"],
+                                    not f["lossless"])[:f["H"], :f["W"]])
+        return _colour(planes, self.jfif, self.adobe, [c["id"] for c in self.comps],
+                       f["lossless"])
+
+
+def _decode(data: bytes) -> np.ndarray:
     if data[:2] != b"\xff\xd8":
-        raise ValueError(f"{path}: not a JPEG file (no SOI marker)")
-    qt, dc_tabs, ac_tabs = {}, {}, {}
-    frame, restart, jfif, adobe = None, 0, False, None
-    comps, coefs = [], None
-    pos = 2
+        raise ValueError("not a JPEG file (no SOI marker)")
+    dec, pos = _Decoder(), 2
     while True:
-        while pos < len(data) and data[pos] == 0xFF and pos + 1 < len(data) \
-                and data[pos + 1] == 0xFF:
+        while pos + 1 < len(data) and data[pos] == 0xFF and data[pos + 1] == 0xFF:
             pos += 1                                  # fill bytes
         if pos + 2 > len(data) or data[pos] != 0xFF:
-            raise ValueError(f"{path}: bad or missing marker at byte {pos}")
+            raise ValueError(f"bad or missing marker at byte {pos}")
         marker = data[pos + 1]
         if marker == 0xD9:                            # EOI
-            break
+            return dec.image()
         if pos + 4 > len(data):
-            raise ValueError(f"{path}: truncated at byte {pos}")
+            raise ValueError(f"truncated at byte {pos}")
         (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
         seg = data[pos + 4:pos + 2 + length]
         if len(seg) != length - 2:
-            raise ValueError(f"{path}: truncated segment {marker:#x}")
+            raise ValueError(f"truncated segment {marker:#x}")
         pos += 2 + length
-        if marker in _SOF_NAMES:
-            raise NotImplementedError(
-                f"{path}: {_SOF_NAMES[marker]} JPEG is not supported (baseline "
-                "sequential Huffman only)")
-        if marker in (0xC0, 0xC1):
-            precision, H, W, nf = struct.unpack(">BHHB", seg[:6])
-            if precision != 8:
-                raise NotImplementedError(f"{path}: {precision}-bit JPEG is not "
-                                          "supported (8-bit only)")
-            if H == 0:
-                raise NotImplementedError(f"{path}: JPEG with a DNL marker is not "
-                                          "supported")
-            if nf not in (1, 3):
-                raise NotImplementedError(f"{path}: JPEG with {nf} components is "
-                                          "not supported (1 or 3)")
-            for i in range(nf):
-                cid, hv, tq = seg[6 + 3 * i:9 + 3 * i]
-                comps.append({"id": cid, "h": hv >> 4, "v": hv & 15, "tq": tq})
-            if nf == 1:
-                comps[0]["h"] = comps[0]["v"] = 1
-            elif (any((c["h"], c["v"]) != (1, 1) for c in comps[1:])
-                  or (comps[0]["h"], comps[0]["v"]) not in ((1, 1), (2, 1), (2, 2))):
-                raise NotImplementedError(
-                    f"{path}: JPEG sampling "
-                    f"{[(c['h'], c['v']) for c in comps]} is not supported "
-                    "(luma 1x1, 2x1 or 2x2 over 1x1 chroma)")
-            hmax, vmax = comps[0]["h"], comps[0]["v"]
-            mcux, mcuy = -(-W // (8 * hmax)), -(-H // (8 * vmax))
-            offset = 0
-            for c in comps:
-                c["bw"], c["bh"] = mcux * c["h"], mcuy * c["v"]
-                c["cw"], c["ch"] = -(-W * c["h"] // hmax), -(-H * c["v"] // vmax)
-                c["offset"] = offset
-                offset += c["bw"] * c["bh"] * 64
-            coefs = [0] * offset
-            frame = (H, W, mcux, mcuy)
+        if marker in _PROCESS or marker in _REFUSED_SOF:
+            dec.start_frame(marker, seg)
         elif marker == 0xDB:                          # DQT
             i = 0
             while i < len(seg):
                 pq, tq = seg[i] >> 4, seg[i] & 15
                 n = 128 if pq else 64
-                qt[tq] = np.frombuffer(seg[i + 1:i + 1 + n], ">u2" if pq else np.uint8
-                                       ).astype(np.int64)
+                dec.qt[tq] = np.frombuffer(seg[i + 1:i + 1 + n], ">u2" if pq else np.uint8
+                                           ).astype(np.int64)
                 i += 1 + n
         elif marker == 0xC4:                          # DHT
             i = 0
@@ -302,81 +480,31 @@ def read_jpeg(path) -> np.ndarray:
                 tc, th = seg[i] >> 4, seg[i] & 15
                 counts = seg[i + 1:i + 17]
                 n = sum(counts)
-                lut = _huffman_lut(counts, seg[i + 17:i + 17 + n], path)
-                (ac_tabs if tc else dc_tabs)[th] = lut
+                dec.luts[tc, th] = jpeg_huffman.huffman_lut(counts, seg[i + 17:i + 17 + n])
                 i += 17 + n
+        elif marker == 0xCC:                          # DAC
+            for i in range(0, len(seg) - 1, 2):
+                tb, val = seg[i], seg[i + 1]
+                if tb >= 16:
+                    dec.ac_cond[tb - 16] = val
+                elif (val & 15) > (val >> 4):
+                    raise ValueError(f"bad DAC conditioning {val:#x}")
+                else:
+                    dec.dc_cond[tb] = (val & 15, val >> 4)
         elif marker == 0xDD:                          # DRI
-            (restart,) = struct.unpack(">H", seg[:2])
-        elif marker == 0xE0 and seg[:5] == b"JFIF\x00":
-            jfif = True
+            (dec.restart,) = struct.unpack(">H", seg[:2])
+        elif marker == 0xE0 and seg[:5] == b"JFIF\x00" and len(seg) >= 14:
+            dec.jfif = True
         elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
-            adobe = seg[11]
+            dec.adobe = seg[11]
         elif marker == 0xDA:                          # SOS
-            if frame is None:
-                raise ValueError(f"{path}: scan before the frame header")
-            ns = seg[0]
-            slots = []
-            for i in range(ns):
-                cs, t = seg[1 + 2 * i:3 + 2 * i]
-                c = next((c for c in comps if c["id"] == cs), None)
-                if c is None or (t >> 4) not in dc_tabs or (t & 15) not in ac_tabs:
-                    raise ValueError(f"{path}: scan names an unknown component "
-                                     "or Huffman table")
-                if c["tq"] not in qt:
-                    raise ValueError(f"{path}: no quantization table {c['tq']}")
-                c["q"] = qt[c["tq"]]
-                slots.append((c, dc_tabs[t >> 4], ac_tabs[t & 15]))
-            ss, se = seg[1 + 2 * ns], seg[2 + 2 * ns]
-            if (ss, se) != (0, 63):
-                raise NotImplementedError(f"{path}: spectral-selection scans "
-                                          "(progressive JPEG) are not supported")
-            _, _, mcux, mcuy = frame
-            if ns == 1:                               # one block per MCU
-                c = slots[0][0]
-                by, bx = np.mgrid[0:-(-c["ch"] // 8), 0:-(-c["cw"] // 8)]
-                order = [(b, 0) for b in (c["offset"] + 64 * (by * c["bw"] + bx)
-                                          ).reshape(-1).tolist()]
-                per_mcu = 1
-            else:
-                cols = []
-                for slot, (c, _, _) in enumerate(slots):
-                    my, mx, v, h = np.meshgrid(np.arange(mcuy), np.arange(mcux),
-                                               np.arange(c["v"]), np.arange(c["h"]),
-                                               indexing="ij")
-                    off = c["offset"] + 64 * ((my * c["v"] + v) * c["bw"]
-                                              + mx * c["h"] + h)
-                    cols.append((off.reshape(mcuy * mcux, -1), slot))
-                per_mcu = sum(o.shape[1] for o, _ in cols)
-                offs = np.concatenate([o for o, _ in cols], axis=1).reshape(-1)
-                slot_of = np.concatenate([np.full(o.shape, s) for o, s in cols],
-                                         axis=1).reshape(-1)
-                order = list(zip(offs.tolist(), slot_of.tolist()))
-            intervals, pos = _segments(data, pos, path)
-            per = restart * per_mcu if restart else len(order)
-            _decode_scan(intervals, order, [(d, a) for _, d, a in slots], per,
-                         coefs, path)
-    if frame is None or coefs is None:
-        raise ValueError(f"{path}: no frame header")
-    H, W, _, _ = frame
-    coef_all = np.array(coefs, np.int64)
-    planes = []
-    for c in comps:
-        if "q" not in c:
-            raise ValueError(f"{path}: component {c['id']} has no scan")
-        zz = coef_all[c["offset"]:c["offset"] + c["bw"] * c["bh"] * 64].reshape(
-            c["bh"], c["bw"], 64) * c["q"]
-        nat = np.empty_like(zz)
-        nat[..., ZIGZAG] = zz
-        pix = _idct_islow(nat.reshape(c["bh"], c["bw"], 8, 8))
-        plane = pix.transpose(0, 2, 1, 3).reshape(8 * c["bh"], 8 * c["bw"])
-        plane = plane[:c["ch"], :c["cw"]]
-        planes.append(_upsample(plane, comps[0]["h"] // c["h"],
-                                comps[0]["v"] // c["v"])[:H, :W])
-    if len(planes) == 1:
-        return planes[0]
-    ids = [c["id"] for c in comps]
-    rgb = (adobe == 0) if not jfif and adobe is not None else (
-        not jfif and adobe is None and ids == [82, 71, 66])
-    if rgb:
-        return np.stack(planes, axis=-1)
-    return _ycc_to_rgb(*planes)
+            pos = dec.scan(seg, data, pos)
+
+
+def read_jpeg(path) -> np.ndarray:
+    """Decode a JPEG → uint8 (H, W) gray, (H, W, 3) RGB or (H, W, 4) CMYK,
+    as ``imageio.v2.imread`` returns it."""
+    try:
+        return _decode(Path(path).read_bytes())
+    except (ValueError, IndexError, struct.error) as e:
+        raise ValueError(f"{path}: {e}") from None

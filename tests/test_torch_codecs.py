@@ -6,7 +6,8 @@
   bit-equal through the port's loader and the JAX loader (which reads it
   with ``imageio.v2.imread(path, apply_gamma=True)``);
 * ``data/jpeg.py`` against ``imageio.v2.imread`` (Pillow, libjpeg-turbo) on
-  Pillow-written baseline JPEGs, bit for bit, and through both LLFF loaders;
+  Pillow-written baseline JPEGs, bit for bit, and through both LLFF loaders
+  (the other kinds: ``tests/test_torch_jpeg_*.py``);
 * ``data/resize.py:area_resize`` against ``cv2.resize(..., INTER_AREA)``:
   uint8 bit for bit; float32 bit for bit at non-integer ratios and within
   3e-7 at whole ones (the block mean's order, ``tests/test_torch_loaders.py``);
@@ -33,6 +34,7 @@ from nerf_sandbox_tpu_torch.data.llff_loader import LLFFSceneLoader
 from nerf_sandbox_tpu_torch.data.png import png_gamma, read_png, read_pngs
 from nerf_sandbox_tpu_torch.data.resize import area_resize
 from nerf_sandbox_tpu_torch.scripts.train_nerf import resolve_config
+from tests import torch_jpeg_writer as jw
 from tests.test_loaders import _make_blender, _make_llff
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -203,16 +205,21 @@ def test_jpeg_equals_imageio(tmp_path, sub, quality, restart, shape):
 
 
 def test_gray_jpeg_and_the_unsupported_kinds(tmp_path):
+    """A gray file equals imageio's; kinds imageio refuses (12-bit,
+    hierarchical) and a cut file raise, naming the file."""
     img = _synth(21, 30, 1, seed=3)[..., 0]
     Image.fromarray(img).save(tmp_path / "g.jpg", quality=85)
     want, got = imageio.imread(tmp_path / "g.jpg"), read_jpeg(tmp_path / "g.jpg")
     assert got.shape == want.shape and np.array_equal(got, want)
-    Image.fromarray(_synth(16, 16, 3, 4)).save(tmp_path / "prog.jpg", progressive=True)
-    with pytest.raises(NotImplementedError, match="prog.jpg.*progressive"):
-        read_jpeg(tmp_path / "prog.jpg")
-    Image.fromarray(_synth(16, 16, 3, 4)).convert("CMYK").save(tmp_path / "cmyk.jpg")
-    with pytest.raises(NotImplementedError, match="cmyk.jpg.*4 components"):
-        read_jpeg(tmp_path / "cmyk.jpg")
+    img = _synth(16, 16, 3, 4)
+    comps = jw.dct_components([img[..., i] for i in range(3)], [(2, 2), (1, 1), (1, 1)])
+    for name, kw, what in (("b12.jpg", {"precision": 12}, "12-bit"),
+                           ("sof5.jpg", {"sof": 0xC5}, "hierarchical")):
+        jw.write_jpeg(tmp_path / name, comps, 16, 16, **kw)
+        with pytest.raises(Exception):
+            imageio.imread(tmp_path / name)
+        with pytest.raises(ValueError, match=f"{name}: {what} .*refuses it too"):
+            read_jpeg(tmp_path / name)
     (tmp_path / "cut.jpg").write_bytes((tmp_path / "g.jpg").read_bytes()[:200])
     with pytest.raises(ValueError, match="cut.jpg"):
         read_jpeg(tmp_path / "cut.jpg")

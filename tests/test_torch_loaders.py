@@ -18,6 +18,7 @@ import json
 import struct
 import zlib
 
+import cv2
 import imageio.v2 as imageio
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ from nerf_sandbox_tpu_torch.data.llff_loader import LLFFSceneLoader
 from nerf_sandbox_tpu_torch.data import png as png_mod
 from nerf_sandbox_tpu_torch.data.png import png_gamma, read_png, read_pngs, write_png
 from tests import make_360_scene, make_dynamic_scene, make_llff_scene, make_sphere_scene
+from tests import torch_jpeg_writer as jw
 from tests.test_loaders import _make_blender, _make_llff
 
 
@@ -276,8 +278,16 @@ def test_blender_downscale_against_cv2(scenes, name, factor, atol):
 
 
 def test_area_downscale_refuses_partial_blocks():
-    with pytest.raises(NotImplementedError, match="P3"):
-        area_downscale(np.zeros((10, 9, 3), np.float32), 2)
+    """A frame the factor does not divide (10 x 9 at 2, 17 x 13 at 3)
+    leaves partial blocks, which ``area_downscale`` weights as the JAX
+    loader's ``cv2.resize(..., INTER_AREA)`` does, bit for bit."""
+    rng = np.random.default_rng(0)
+    for shape, f in (((10, 9, 3), 2), ((17, 13, 4), 3), ((17, 13), 3)):
+        img = rng.random(shape, dtype=np.float32)
+        want = cv2.resize(img, (shape[1] // f, shape[0] // f), interpolation=cv2.INTER_AREA)
+        got = area_downscale(img, f)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert np.array_equal(got, want), shape
 
 
 @pytest.mark.parametrize("name,kw", [
@@ -305,18 +315,23 @@ def test_llff_minified_folder_equals_jax(tmp_path):
 
 
 def test_llff_gamma_and_jpeg_raise_naming_the_file(tmp_path):
-    """A gAMA PNG loads as the JAX loader loads it
-    (``tests/test_torch_codecs.py``); a JPEG the decoder does not take
-    (progressive) and a damaged one raise, naming the file."""
+    """A gAMA PNG and a progressive JPEG load as the JAX loader loads them
+    (``tests/test_torch_codecs.py``, ``tests/test_torch_jpeg_*.py``); a JPEG
+    imageio refuses (12-bit) and a damaged one raise, naming the file."""
     root = _make_llff(tmp_path / "fern", n=3, H=8, W=8)
     first = sorted((root / "images").glob("*.png"))[0]
     _with_gamma(first, first)
     for split in ("train", "test"):
         _same_scene(LLFFSceneLoader(root).load(split), JLLFF(root).load(split))
-    Image.open(first).convert("RGB").save(root / "images" / "img_000.jpg",
-                                          progressive=True)
+    img = np.asarray(Image.open(first).convert("RGB"))
+    Image.fromarray(img).save(root / "images" / "img_000.jpg", progressive=True)
     first.unlink()
-    with pytest.raises(NotImplementedError, match="img_000.jpg.*progressive JPEG"):
+    for split in ("train", "test"):
+        _same_scene(LLFFSceneLoader(root).load(split), JLLFF(root).load(split))
+    jw.write_jpeg(root / "images" / "img_000.jpg",
+                  jw.dct_components([img[..., i] for i in range(3)], [(1, 1)] * 3), 8, 8,
+                  precision=12)
+    with pytest.raises(ValueError, match="img_000.jpg: 12-bit JPEG.*refuses it too"):
         LLFFSceneLoader(root).load("train")
     (root / "images" / "img_000.jpg").write_bytes(b"\xff\xd8\xff")
     with pytest.raises(ValueError, match="img_000.jpg"):
