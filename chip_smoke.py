@@ -5,6 +5,7 @@ one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; one CUDA card
     python3 chip_smoke.py --dp     # phases 15 and 16 alone, on every card there is
+    echo go | python3 chip_smoke.py --scatter-parts   # 14a's scatter parts, profiled (JSON)
 
 Three render configurations: Blender vanilla (frequency encoder, 8x256 MLP), the
 contracted K-Planes-hybrid unbounded-360 one (planes (64, 128) x 8, lines
@@ -203,15 +204,17 @@ Phases (any failure exits non-zero):
    rows x 2 features, resolutions 16 to 512; ``phase_hash``): 14a the
    encode on the card against the CPU at a vanilla step's 65,536 and
    196,608 points, and the table-gradient scatter (``csrc/hash_scatter.cu``,
-   a port-only kernel: sorted keys, each row summed in one fixed order) on
-   25.2 M pairs of a typical, a collision-heavy and a beyond-the-box
-   batch, bit-equal to its plain version on CPU copies and across two
-   runs, timed with its parts beside ``index_add_``; 14b ``train_nerf
+   port-only kernels: the pairs counted, scanned and partitioned into
+   buckets of rows in flat order, each bucket's rows summed in one fixed
+   order) on 25.2 M pairs of a typical, a collision-heavy and a
+   beyond-the-box batch, bit-equal to its plain version on CPU copies and
+   across two runs, timed with its parts (count, scan, partition, sum by
+   the profiler) beside ``index_add_``; 14b ``train_nerf
    --vanilla --encoder hashgrid --lr_grid 1e-2``, 100 eager steps and a
    chunk, ``--resume`` and ``--render_only``, K2 launching nowhere (the
    gate refuses hash grids) and the scatter in every training window, the
    train step's own scatters (longest run, ms, bit-equal to the plain
-   version), a 16-step chunk bit-equal to 16
+   version and across two runs), a 16-step chunk bit-equal to 16
    eager steps, ms/step eager and chunked, the frame's seconds and the
    encode's share; 14c ``--sampling occupancy`` with the updater's ms,
    ``--export_mesh --mesh_res 128`` with the σ grid card vs CPU, and one
@@ -570,6 +573,75 @@ def profiled_kernel_ms(torch, fn, match):
     return kernel_ms_of(torch, prof.events(), match)
 
 
+SCATTER_PARTS = {"count": "hash_scatter_count", "scan": "hash_scatter_scan",
+                 "partition": "hash_scatter_partition", "sum": "hash_scatter_sum"}
+
+
+def scatter_parts_child(torch):
+    """``chip_smoke.py --scatter-parts``: phase 14a's typical batch (its
+    draws: 25.2 M pairs of 16 x 2^19 x 2), drawn on the host, then, once a
+    line "go" comes on stdin (the caller's card is idle then), through the
+    table-gradient scatter once, then once under torch.profiler → prints
+    one JSON object, the device ms of each part of :data:`SCATTER_PARTS`
+    (sum: sum_big and sum), or null where the trace holds none."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerf_sandbox_tpu_torch.models import hashgrid as hg
+    from nerf_sandbox_tpu_torch.ops import hash_scatter as hs
+    dev = torch.device("cuda")
+    cfg = hg.HashGridConfig(aabb_scale=1.5)
+    rng = np.random.RandomState(14)
+    rng.uniform(-1.0, 1.0, (cfg.n_levels, cfg.table_size, cfg.n_features))  # 14a's tables
+    rng.uniform(-1.6, 1.6, (65536, 3))                     # and its coarse pass's points
+    pts = torch.from_numpy(rng.uniform(-1.6, 1.6, (196608, 3)).astype(np.float32))
+    if sys.stdin.readline().strip() != "go":
+        return
+    with torch.no_grad():
+        keys = hg.corner_rows(pts.to(dev), cfg)[0].reshape(-1)
+    vals = torch.randn((keys.numel(), cfg.n_features), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(14))
+    n_rows = cfg.n_levels * cfg.table_size
+    hs.hash_scatter(keys, vals, n_rows)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        hs.hash_scatter(keys, vals, n_rows)
+        torch.cuda.synchronize()
+    events = prof.events()
+    print(json.dumps({part: kernel_ms_of(torch, events, name)
+                      for part, name in SCATTER_PARTS.items()}))
+
+
+CHILDREN = []      # processes main() stops if they still run
+
+
+def start_scatter_parts():
+    """``chip_smoke.py --scatter-parts`` started (it draws its batch while
+    phase 14a runs) → the process, for ``scatter_parts_ms``."""
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--scatter-parts"],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    CHILDREN.append(proc)
+    return proc
+
+
+def scatter_parts_ms(proc):
+    """The table-gradient scatter's parts on phase 14a's typical batch, by
+    the profiler in a process of its own (``start_scatter_parts``; on the
+    H100 a process's later profiler sessions trace nothing): tells it to go
+    → {part: ms or None}, None throughout if that process failed (its error
+    printed)."""
+    try:
+        out, err = proc.communicate("go\n", timeout=300)
+        if proc.returncode == 0:
+            return json.loads(out.strip().splitlines()[-1])
+        print(f"[hash] 14a the parts' process exited {proc.returncode}: {err[-2000:]}",
+              flush=True)
+    except (subprocess.TimeoutExpired, ValueError, IndexError) as e:
+        print(f"[hash] 14a the parts' process failed: {e!r}", flush=True)
+    return dict.fromkeys(SCATTER_PARTS)
+
+
 def k3_times(torch, ke, grid, pts, ep, tag, card, profiled=False):
     """K3 encode-only on ``pts`` through the wrapper: its device time from a
     CUDA graph of 20 calls (``graph_ms``), the CUDA-event time of one call
@@ -639,13 +711,16 @@ def hidden_label(h):
 
 def kernel_label(mangled):
     """A readable name of K1's, K2's, K3's, K5's and the hash scatter's
-    instantiations (else the mangled or plain name)."""
+    kernels and instantiations (else the mangled or plain name)."""
     k5 = re.search(r"precision_dot_kernelILi(\d)E", mangled)
     if k5:
         return f"K5 precision_dot<{('bf16', 'tf32', 'bf16x3', 'fp32')[int(k5.group(1))]}>"
-    scatter = re.search(r"hash_scatter_kernelILi(\d+)E", mangled)
+    scatter = re.search(r"\d+(hash_scatter_[a-z_]+?)(?:ILi(\d+)E|E)", mangled)
     if scatter:
-        return f"hash_scatter<F={'any' if scatter.group(1) == '0' else scatter.group(1)}>"
+        part = scatter.group(1)
+        if scatter.group(2) is None:
+            return part
+        return f"{part}<F={'any' if scatter.group(2) == '0' else scatter.group(2)}>"
     m = re.match(r"_Z(\d+)", mangled)
     if not m:
         return mangled
@@ -4561,19 +4636,20 @@ def phase_hash_encode(torch, dev, card, kernels):
     (typical), for 196,608 points in a ball of radius 0.01 (every pair of
     a coarse level on 8 rows) and for 196,608 points beyond one corner of
     the box (clamped onto it: every level's pairs on 8 rows, runs of
-    196,608, which the kernel's blocks sum): bit-equal to the plain version
+    196,608, each one sum warp's walk): bit-equal to the plain version
     on CPU copies of the same tensors and across two card runs;
     ``index_add_`` on the card
     (atomics) beside it, and whether two of its runs agree. Timed: the
     encode's forward and backward at 196,608 points, the scatter and its
-    parts (sort, gather, the kernel by the profiler) beside its bound and
-    ``index_add_``."""
+    parts (count, scan, partition and sum by the profiler in a process of
+    its own: ``scatter_parts_ms``) beside its bound and ``index_add_``."""
     import numpy as np
 
     from nerf_sandbox_tpu_torch.models import hashgrid as hg
     from nerf_sandbox_tpu_torch.ops import hash_scatter as hs
 
     t_phase = time.perf_counter()
+    parts_proc = start_scatter_parts()
     cfg = hg.HashGridConfig(aabb_scale=1.5)
     L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features
     rng = np.random.RandomState(14)
@@ -4640,9 +4716,8 @@ def phase_hash_encode(torch, dev, card, kernels):
               f"max|diff| {r['lib_err']:.3g}; the scatter {r['ms']:.3f} ms (the kernel "
               f"{kms} by the profiler), index_add_ {r['lib_ms']:.3f} ms | {card}", flush=True)
         check(r["twice"] and r["plain"], f"14a: the {tag} scatter is not bit-equal: {r}")
-    sort_ms = cuda_ms(torch, lambda: torch.sort(keys_t, stable=True))
-    perm = torch.sort(keys_t, stable=True)[1]
-    gather_ms = cuda_ms(torch, lambda: vals.index_select(0, perm))
+    torch.cuda.synchronize()
+    parts = scatter_parts_ms(parts_proc)
     b_ms, b_by = bound(0.0, hash_scatter_bytes(n, F, n_rows))
     plain_ms = cuda_ms(torch, lambda: hs.hash_scatter_plain(keys_t, vals, n_rows))
     r = runs["typical"]
@@ -4653,9 +4728,10 @@ def phase_hash_encode(torch, dev, card, kernels):
                  "gradient of this gather, XLA's scatter-add; a port-only kernel)",
         max_abs_err=0.0 if r["plain"] else float("nan"), ms=r["ms"], plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=r["lib_ms"])
-    print(f"[hash] 14a scatter, typical, parts: stable sort of the keys {sort_ms:.3f} "
-          f"ms, gather of the values {gather_ms:.3f} ms, the kernel "
-          f"{r['kernel_ms']} ms; whole {r['ms']:.3f} ms against the bound "
+    part_text = ", ".join(f"{k} {'not measured' if v is None else f'{v:.4f} ms'}"
+                          for k, v in parts.items())
+    print(f"[hash] 14a scatter, typical, parts by the profiler: {part_text}; whole "
+          f"{r['ms']:.3f} ms against the bound "
           f"{b_ms:.3f} ms ({b_by}: keys + values + table, "
           f"{hash_scatter_bytes(n, F, n_rows) / 1e6:.1f} MB), plain version "
           f"(index_add_) {plain_ms:.3f} ms | {card}", flush=True)
@@ -4694,9 +4770,9 @@ def batch_scatter(torch, hs, step, card):
     """14b: the scatters of one train step on the CLI's own batch (``step``
     runs it eagerly), recorded at their launch: for each, the pairs, the
     rows they fall on, the longest run and the pairs in runs of 128 or more
-    (those the kernel's blocks sum, samples clamped onto the box's faces and
-    corners among them), the scatter's ms and its kernel's by the profiler,
-    and the result bit-equal to the plain version on CPU copies."""
+    (samples clamped onto the box's faces and corners among them), the
+    scatter's ms and its kernels' by the profiler, and the result bit-equal
+    to the plain version on CPU copies and across two card runs."""
     seen = []
     launch = hs._launch
 
@@ -4715,16 +4791,20 @@ def batch_scatter(torch, hs, step, card):
         run_ms = cuda_ms(torch, lambda: hs.hash_scatter(keys, vals, n_rows))
         kernel_ms = profiled_kernel_ms(
             torch, lambda: hs.hash_scatter(keys, vals, n_rows), "hash_scatter")
-        same = bool(torch.equal(hs.hash_scatter(keys, vals, n_rows).cpu(),
+        got = hs.hash_scatter(keys, vals, n_rows)
+        twice = bool(torch.equal(got, hs.hash_scatter(keys, vals, n_rows)))
+        same = bool(torch.equal(got.cpu(),
                                 hs.hash_scatter_plain(keys.cpu(), vals.cpu(), n_rows)))
         kms = "not measured" if kernel_ms is None else f"{kernel_ms:.3f} ms"
         print(f"[hash] 14b the train step's scatter {j + 1} of {len(seen)}: "
               f"{keys.numel()} pairs onto {int((counts > 0).sum())} rows, longest run "
               f"{int(counts.max())}, {int(counts[counts >= 128].sum())} pairs in "
               f"{int((counts >= 128).sum())} runs of 128 or more; {run_ms:.3f} ms (the "
-              f"kernel {kms}); card vs plain on CPU copies "
-              f"{'bit-equal' if same else 'DIFFERENT'} | {card}", flush=True)
-        check(same, f"14b: the train step's scatter {j + 1} is not bit-equal to plain")
+              f"kernels {kms}); card vs plain on CPU copies "
+              f"{'bit-equal' if same else 'DIFFERENT'}, card twice "
+              f"{'bit-equal' if twice else 'DIFFERENT'} | {card}", flush=True)
+        check(same and twice, f"14b: the train step's scatter {j + 1} is not bit-equal "
+              f"(plain {same}, twice {twice})")
     check(len(seen) > 0, "14b: the train step launched no scatter")
 
 
@@ -5948,8 +6028,9 @@ def tp_scatter_row(torch, dev, card, kernels):
     """The table-gradient scatter on a rank's piece of the hash tables
     (16 levels x 2^19 rows x 1 feature, the default F = 2 cut 2 ways), at a
     fine pass's 25.2 M pairs (phase 14a's typical points): bit-equal to the
-    plain version on CPU copies, timed beside its bound and ``index_add_``
-    → the kernels line's ``hash_scatter_tp`` row (launches: 16d's)."""
+    plain version on CPU copies and across two card runs, timed beside its
+    bound and ``index_add_`` → the kernels line's ``hash_scatter_tp`` row
+    (launches: 16d's)."""
     import numpy as np
 
     from nerf_sandbox_tpu_torch.models import hashgrid as hg
@@ -5964,8 +6045,9 @@ def tp_scatter_row(torch, dev, card, kernels):
     vals = torch.randn((n, F), generator=torch.Generator(device=dev).manual_seed(16),
                        device=dev)
     got = hs.hash_scatter(keys, vals, n_rows)
+    twice = bool(torch.equal(got, hs.hash_scatter(keys, vals, n_rows)))
     same = bool(torch.equal(got.cpu(), hs.hash_scatter_plain(keys.cpu(), vals.cpu(),
-                                                             n_rows)))
+                                                             n_rows))) and twice
     ms = cuda_ms(torch, lambda: hs.hash_scatter(keys, vals, n_rows))
     plain_ms = cuda_ms(torch, lambda: hs.hash_scatter_plain(keys, vals, n_rows))
     lib_ms = cuda_ms(torch, lambda: torch.zeros((n_rows, F), device=dev)
@@ -5973,7 +6055,8 @@ def tp_scatter_row(torch, dev, card, kernels):
     b_ms, b_by = bound(0.0, hash_scatter_bytes(n, F, n_rows))
     print(f"[tp] 16d the table-gradient scatter on a rank's piece ({L} x 2^"
           f"{cfg.log2_table_size} x {F}), {n} pairs: card vs plain on CPU copies "
-          f"{'bit-equal' if same else 'DIFFERENT'}; {ms:.3f} ms, plain {plain_ms:.3f} "
+          f"and across two card runs {'bit-equal' if same else 'DIFFERENT'}; "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} "
           f"ms, index_add_ {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}) | {card}",
           flush=True)
     check(same, "16d: the scatter on a rank's piece is not bit-equal to plain")
@@ -7227,9 +7310,12 @@ def main():
               "this script", file=sys.stderr)
         return 2
     sys.path.insert(0, root)
-    if sys.argv[1:] not in ([], ["--dp"]):
-        print("usage: chip_smoke.py [--dp]", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--dp"], ["--scatter-parts"]):
+        print("usage: chip_smoke.py [--dp | --scatter-parts]", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--scatter-parts"]:
+        scatter_parts_child(torch)
+        return 0
     try:
         if sys.argv[1:] == ["--dp"]:
             name, count = run_dp(torch, root)
@@ -7242,6 +7328,10 @@ def main():
         import shutil
         for d in WORK_DIRS:
             shutil.rmtree(d, ignore_errors=True)
+        for proc in CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))
     return 0

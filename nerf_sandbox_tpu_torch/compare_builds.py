@@ -30,6 +30,24 @@ difference, the card's name and power limit, and the rate of a copy between
 two 16 MB buffers resident in L2 (a lower bound on the card's L2 bandwidth,
 for reading the weight-stream rates that ``chip_smoke.py`` prints);
 ``--out`` also writes them as JSON. Needs a CUDA card and nvcc.
+
+    python -m nerf_sandbox_tpu_torch.compare_builds --old-csrc DIR --hash-scatter [--rounds N] [--out FILE]
+
+compares the table-gradient scatter alone: the old tree's
+``ops/hash_scatter.py`` (``DIR/../ops/hash_scatter.py``, imported by path
+and loading ``DIR``'s ``hash_scatter.cu``, built as above) against the
+current one, timed in turns on ``chip_smoke.py`` phase 14a's three batches
+(25.2 M pairs of F = 2 onto 16 x 2^19 rows: typical, collision-heavy, beyond
+the box), on a hash train step's two sizes (the coarse and fine passes' 8.4
+and 16.8 M pairs, typical points), on the typical batch at F = 1 (a
+``--mesh_model 2`` rank's piece, phase 16d), 3, 4 and 8 and on 16 x 2^23
+and 16 x 2^24 rows of 2 (tables taken in windows), each old and new output
+bit-equal; the sum's paths on 14a's batches and on the train step's own
+scatters (``sum_paths``); then phase 8's recipe with the hash encoder (16 x
+2^19 x 2, ``grid_lr`` 1e-2) on ``bench.py``'s scene, its table gradients
+through each build in turn: ms/step of 16 eager steps and of a captured
+chunk of 16 (each build its own capture), and the two builds' states after
+the same 16 eager steps bit-equal.
 """
 
 from __future__ import annotations
@@ -152,6 +170,189 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def old_hash_scatter(csrc: Path):
+    """The tree of csrc's ``ops/hash_scatter.py``, imported by path, its
+    launches going to csrc's ``hash_scatter.cu`` built into
+    build/compare_old_hash/ → that module."""
+    from types import SimpleNamespace
+
+    from nerf_sandbox_tpu_torch.ops import cuda_build
+    lib = build_variant(csrc, "compare_old_hash", ("hash_scatter",))["hash_scatter"]
+    lib.nerf_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.nerf_cuda_error_string.restype = ctypes.c_char_p
+    spec = importlib.util.spec_from_file_location(
+        "compare_old_hash_scatter", csrc.parent / "ops" / "hash_scatter.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.cuda_build = SimpleNamespace(load=lambda name: lib, check=cuda_build.check)
+    return mod
+
+
+def sum_paths(hs, keys, F: int, n_rows: int) -> dict:
+    """Which path of ``csrc/hash_scatter.cu``'s sum (F <= 2) each bucket and
+    stage of (keys, F, n_rows) takes, from the keys alone: the buckets and
+    pairs sum_big takes (more than 2^15 pairs on at most 32 rows), the
+    other buckets' stages of 256 pairs, and those whose first group of 32
+    holds at most 16 rows (the owner lanes take such a stage, and the
+    stages after it while the bucket's new rows stay within 32)."""
+    plan = hs.scatter_plan(keys.numel(), F, n_rows)
+    keys = keys.reshape(-1).long()
+    s = plan.shift
+    bucket = keys >> s
+    nb = -(-n_rows >> s)
+    pairs = torch.bincount(bucket, minlength=nb)
+    rows = torch.bincount(torch.unique(keys) >> s, minlength=nb)
+    big = (pairs > 2 ** 15) & (rows <= 32)
+    order = torch.sort(bucket, stable=True).indices
+    b_sorted = bucket[order]
+    start = torch.cumsum(pairs, 0) - pairs
+    pos = torch.arange(keys.numel(), device=keys.device) - start[b_sorted]
+    keep = ~big[b_sorted]
+    stage = b_sorted * (2 ** 24) + pos // 256          # a stage's id
+    first = keep & (pos % 256 < 32)
+    row = keys[order] & ((1 << s) - 1)
+    seen = torch.unique(stage[first] * (2 ** 16) + row[first]) >> 16
+    _, per_stage = torch.unique(seen, return_counts=True)
+    return {"buckets": int((pairs > 0).sum()), "sum_big_buckets": int(big.sum()),
+            "sum_big_pairs": int(pairs[big].sum()),
+            "stages": int(torch.unique(stage[keep]).numel()),
+            "owner_stages": int((per_stage <= 16).sum()),
+            "longest_bucket": int(pairs.max())}
+
+
+def compare_hash_scatter(csrc: Path, rounds: int, card: str) -> dict:
+    """The ``--hash-scatter`` comparison (module docstring) → its results."""
+    import chip_smoke as cs
+    from nerf_sandbox_tpu_torch.data.sampler import RayBatchSpec
+    from nerf_sandbox_tpu_torch.models import hashgrid as hg
+    from nerf_sandbox_tpu_torch.models.mlp import NeRFConfig
+    from nerf_sandbox_tpu_torch.ops import hash_scatter as new_hs
+    from nerf_sandbox_tpu_torch.train import step as ts
+
+    dev = torch.device("cuda")
+    builds = {"old": old_hash_scatter(csrc), "new": new_hs}
+    rng = np.random.RandomState(14)
+    ball = rng.normal(size=(196608, 3))
+    typical = rng.uniform(-1.6, 1.6, (196608, 3))
+    # (points, features, log2 of a level's rows)
+    cases = {"typical 25.2M": (typical, 2, 19),
+             "collision-heavy 25.2M": (np.array([0.1, 0.2, 0.3]) + 0.01 * ball
+                                       / np.linalg.norm(ball, axis=1)[:, None]
+                                       * rng.uniform(0, 1, (196608, 1)), 2, 19),
+             "beyond the box 25.2M": (rng.uniform(1.6, 3.0, (196608, 3)), 2, 19),
+             "train coarse 8.4M": (rng.uniform(-1.6, 1.6, (65536, 3)), 2, 19),
+             "train fine 16.8M": (rng.uniform(-1.6, 1.6, (131072, 3)), 2, 19),
+             "typical 25.2M F=1": (typical, 1, 19),
+             "typical 25.2M F=3": (typical, 3, 19),
+             "typical 25.2M F=4": (typical, 4, 19),
+             "typical 25.2M F=8": (typical, 8, 19),
+             "typical 25.2M 16x2^23x2": (typical, 2, 23),
+             "typical 25.2M 16x2^24x2": (typical, 2, 24)}
+    gen = torch.Generator(device=dev).manual_seed(14)
+    result = {}
+    for tag, (p, F, log2) in cases.items():
+        cfg = hg.HashGridConfig(n_features=F, log2_table_size=log2, aabb_scale=1.5)
+        n_rows = cfg.n_levels * cfg.table_size
+        with torch.no_grad():
+            keys = hg.corner_rows(torch.from_numpy(p.astype(np.float32)).to(dev),
+                                  cfg)[0].reshape(-1)
+        vals = torch.randn((keys.numel(), F), generator=gen, device=dev)
+        outs = {w: builds[w].hash_scatter(keys, vals, n_rows) for w in builds}
+        same = bool(torch.equal(outs["old"], outs["new"]))
+        times = []
+        for _ in range(rounds):
+            times += [(w, cs.cuda_ms(torch, lambda w=w: builds[w].hash_scatter(
+                keys, vals, n_rows))) for w in ("old", "new", "new", "old")]
+        old_ms = np.median([t for w, t in times if w == "old"])
+        new_ms = np.median([t for w, t in times if w == "new"])
+        paths = sum_paths(new_hs, keys, F, n_rows) if F <= 2 and log2 == 19 else None
+        print(f"[compare] hash_scatter {tag} ({keys.numel()} pairs, {n_rows} rows of {F}, "
+              f"{new_hs.scatter_plan(keys.numel(), F, n_rows).windows} window(s)): (old, new, "
+              f"new, old) x {rounds} = {', '.join(f'{t:.3f}' for _, t in times)} ms; median "
+              f"old {old_ms:.3f} ms, new {new_ms:.3f} ms: {old_ms / new_ms:.3f}x; outputs "
+              f"{'bit-equal' if same else 'DIFFERENT'}; sum paths {paths} | {card}",
+              flush=True)
+        result[f"hash_scatter {tag}"] = {"ms": times, "bit_equal": same, "paths": paths}
+        del outs, keys, vals
+
+    # phase 8's recipe with the hash encoder, the table gradient through each build
+    hcfg = hg.HashGridConfig(aabb_scale=1.5)
+    hyper = ts.TrainHyper(model=NeRFConfig(hcfg.out_dim, 27, 8, 256, 4), nc=64, nf=128,
+                          pos_encoder="hashgrid", enc_cfg=hcfg)
+    spec = RayBatchSpec(rays_per_batch=cs.TRAIN_RAYS, image_h=cs.IMG, image_w=cs.IMG,
+                        white_bkgd=True)
+    tx = ts.make_optimizer(5e-4, "cosine", {"T_max": 50_000, "eta_min": 5e-6}, grid_lr=1e-2)
+    from nerf_sandbox_tpu_torch.core.encoding import vanilla_encoders
+    pos_b, dir_b = vanilla_encoders()
+    state = ts.init_train_state(hyper, tx, near=2.0, far=6.0,
+                                generator=torch.Generator().manual_seed(0), device=dev)
+    scene = cs.bench_scene(torch, dev)
+    k = cs.TRAIN_SCAN
+    chunks = {w: ts.build_train_step(hyper, spec, tx, pos_b, dir_b, scan_steps=k,
+                                     device=dev) for w in builds}
+    live = {w: ts.clone_state(state) for w in builds}
+    ends = {}
+
+    def with_build(w, fn):
+        hg.hash_scatter = builds[w].hash_scatter
+        try:
+            return fn()
+        finally:
+            hg.hash_scatter = new_hs.hash_scatter
+
+    def eager(w):
+        st = ts.clone_state(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            st, _ = chunks[w].step(st, scene)
+        torch.cuda.synchronize()
+        ends[w] = st
+        return 1e3 * (time.perf_counter() - t0) / k
+
+    def captured(w):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        live[w], _ = chunks[w](live[w], scene)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / k
+
+    seen, launch = [], new_hs._launch   # the step's own scatters and their paths
+
+    def recording(keys, values, n_rows):
+        seen.append(sum_paths(new_hs, keys, values.shape[1], n_rows) | {"pairs": keys.numel()})
+        return launch(keys, values, n_rows)
+
+    new_hs._launch = recording
+    try:
+        chunks["new"].step(ts.clone_state(state), scene)
+    finally:
+        new_hs._launch = launch
+    for j, paths in enumerate(seen):
+        print(f"[compare] hash train step, its scatter {j + 1} of {len(seen)}: sum paths "
+              f"{paths}", flush=True)
+    result["hash step paths"] = {"paths": seen, "bit_equal": True}
+    for w in builds:                      # warm-up and each build's capture
+        with_build(w, lambda w=w: (eager(w), captured(w)))
+    step_ms = {"eager": [], "captured": []}
+    for _ in range(rounds):
+        for w in ("old", "new", "new", "old"):
+            step_ms["eager"].append((w, with_build(w, lambda w=w: eager(w))))
+            step_ms["captured"].append((w, with_build(w, lambda w=w: captured(w))))
+    same = all(torch.equal(a, b) for a, b in zip(ts.state_tensors(ends["old"]),
+                                                 ts.state_tensors(ends["new"])))
+    for kind, times in step_ms.items():
+        old_ms = np.median([t for w, t in times if w == "old"])
+        new_ms = np.median([t for w, t in times if w == "new"])
+        print(f"[compare] hash train step, {kind} (ms/step over {k} steps): (old, new, new, "
+              f"old) x {rounds} = {', '.join(f'{t:.3f}' for _, t in times)}; median old "
+              f"{old_ms:.3f}, new {new_ms:.3f}: {old_ms / new_ms:.3f}x | {card}", flush=True)
+    print(f"[compare] hash train step: the two builds' states after {k} eager steps "
+          f"{'bit-equal' if same else 'DIFFERENT'}", flush=True)
+    result["hash step"] = {"ms": step_ms, "bit_equal": same}
+    return result
+
+
 def points_360(torch, dev):
     """K3's points: the 360 configuration's frame 1, its mid-frame tile of
     16384 rays x 192 disparity-linear samples, contracted (3,145,728 x 3
@@ -207,11 +408,19 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=1,
                     help="times each comparison runs the order old, new, new, old")
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--hash-scatter", action="store_true",
+                    help="compare the table-gradient scatter alone (module docstring)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare_builds: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.hash_scatter:
+        result = compare_hash_scatter(args.old_csrc, args.rounds, card_line())
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps(result, indent=1))
+        return 0 if all(r["bit_equal"] for r in result.values()) else 1
     import chip_smoke as cs
     from nerf_sandbox_tpu_torch.core.encoding import (
         positional_encoding, vanilla_encoders)

@@ -392,15 +392,31 @@ def test_k2_launches_one_pass_outside_hierarchical_sampling():
     assert cs.k2_launches(200, 200, passes=1) == 3
 
 
-def test_hash_scatter_labels_and_bytes():
-    """Phase 14's names for the scatter's instantiations (its kernels live
-    in an anonymous namespace), and its bound's bytes: the int32 keys and
-    fp32 values read once, the fp32 table written once."""
+@pytest.mark.parametrize("mangled, label", [
+    ("18hash_scatter_countEPKixixxiiPj", "hash_scatter_count"),
+    ("23hash_scatter_scan_tilesEPjiiS0_", "hash_scatter_scan_tiles"),
+    ("25hash_scatter_scan_bucketsEPKjiPj", "hash_scatter_scan_buckets"),
+    ("22hash_scatter_partitionILi2EEEvPKiPKfxixxiiPKjS6_PNS_3RecIXT_EE1TE",
+     "hash_scatter_partition<F=2>"),
+    ("22hash_scatter_partitionILi0EEEvPKiPKfxixxiiPKjS6_PNS_3RecIXT_EE1TE",
+     "hash_scatter_partition<F=any>"),
+    ("16hash_scatter_sumILi1EEEvPKNS_3RecIXT_EE1TEPKfiPKjixiPjPf", "hash_scatter_sum<F=1>"),
+    ("16hash_scatter_sumILi0EEEvPKNS_3RecIXT_EE1TEPKfiPKjixiPjS6_Pf",
+     "hash_scatter_sum<F=any>"),
+    ("20hash_scatter_sum_bigILi2EEEvPKNS_3RecIXT_EE1TEPKjixiPjPfS6_S7_",
+     "hash_scatter_sum_big<F=2>"),
+])
+def test_hash_scatter_labels_and_bytes(mangled, label):
+    """Phase 14's names for the scatter's six kernels and their
+    instantiations (they live in an anonymous namespace, whose mangled name
+    holds ``15_hash_scatter_cu``), each with ``hash_scatter`` in it so that
+    the profiler's sum by that name covers the pipeline; and its bound's
+    bytes: the int32 keys and fp32 values read once, the fp32 table written
+    once."""
     pre = "_ZN48_GLOBAL__N__0c392a6b_15_hash_scatter_cu_63587d1b"
-    assert (cs.kernel_label(pre + "19hash_scatter_kernelILi2EEEvPKiPKfxixPf")
-            == "hash_scatter<F=2>")
-    assert (cs.kernel_label(pre + "19hash_scatter_kernelILi0EEEvPKiPKfxixPf")
-            == "hash_scatter<F=any>")
+    assert cs.kernel_label(pre + mangled) == label
+    assert "hash_scatter" in pre + mangled
+    assert set(cs.SCATTER_PARTS) == {"count", "scan", "partition", "sum"}
     n, F, rows = 16 * 196608 * 8, 2, 16 * 2 ** 19
     assert cs.hash_scatter_bytes(n, F, rows) == n * 4 + n * 8 + rows * 8
     assert abs(cs.bound(0.0, cs.hash_scatter_bytes(n, F, rows))[0] - 0.110179) < 1e-5

@@ -895,7 +895,7 @@ def test_train_chunk_graph_equals_eager_steps(cuda):
     assert int(mg["skipped"]) == 0
 
 
-HASH_F = [1, 2, 3, 4, 8]
+HASH_F = [1, 2, 3, 4, 8, 33]
 
 
 def _scatter_pairs(kind, n, F, n_rows, dev, seed=0):
@@ -916,9 +916,10 @@ def _scatter_pairs(kind, n, F, n_rows, dev, seed=0):
 def test_hash_scatter_bit_equal_to_plain(cuda, kind, F, n):
     """The table-gradient scatter (``ops/hash_scatter.py``) on the card: bit-
     equal to its plain version (``index_add_`` on CPU copies, the keys' flat
-    order) and to itself on a second run, at every feature width (2 in
-    registers, any other width one pass per feature) and at run lengths
-    around the kernel's unroll of 8; the launch counted once per call."""
+    order) and to itself on a second run, at every feature width (1 and 2
+    with the values in the partition, any other width with the flat index:
+    3 to 8 a lane a pair in the sum, 33 a lane a feature) and with n on
+    either side of a multiple of 8; the wrapper counted once per call."""
     from nerf_sandbox_tpu_torch.ops import hash_scatter as hs
     n_rows = 4096
     keys, vals = _scatter_pairs(kind, n, F, n_rows, cuda, seed=n + F)
@@ -935,12 +936,11 @@ def test_hash_scatter_bit_equal_to_plain(cuda, kind, F, n):
 @pytest.mark.parametrize("F", HASH_F)
 @pytest.mark.parametrize("run", [127, 128, 129, 1365, 2048, 2049, 4096, 4097, 196608])
 def test_hash_scatter_long_runs_bit_equal_to_plain(cuda, F, run):
-    """Runs of 128 or more elements, which the kernel's blocks sum through
-    shared memory, HS_STAGE = 4096 floats at a time: a hot row of ``run``
-    pairs among 30,000 spread ones, in shuffled flat order, bit-equal to the
-    plain version on CPU copies and to a second card run, with run lengths
-    on either side of the long-run threshold and of the stage boundaries
-    (4096 / F elements)."""
+    """A hot row of ``run`` pairs among 30,000 spread ones, in shuffled flat
+    order (whole groups of 32 of one row, which the group's lowest lane adds
+    onto the row's running sum): bit-equal to the plain version on CPU
+    copies and to a second card run, with run lengths around multiples of
+    the group of 32 and the stage of 256 pairs."""
     from nerf_sandbox_tpu_torch.ops import hash_scatter as hs
     n_rows = 4096
     g = torch.Generator(device=cuda).manual_seed(run + F)
@@ -991,8 +991,8 @@ def test_hash_scatter_never_takes_the_plain_version(cuda, monkeypatch):
 
 
 def test_hash_scatter_is_captured_in_a_graph(cuda):
-    """The scatter inside a CUDA graph (sort, gather, kernel on the capturing
-    stream) replays bit-equal to an eager call on new values."""
+    """The scatter inside a CUDA graph (its six kernels and its scratch on
+    the capturing stream) replays bit-equal to an eager call on new values."""
     from nerf_sandbox_tpu_torch.ops import hash_scatter as hs
     keys, vals = _scatter_pairs("typical", 50000, 2, 2048, cuda)
     side = torch.cuda.Stream()
@@ -1008,6 +1008,166 @@ def test_hash_scatter_is_captured_in_a_graph(cuda):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, hs.hash_scatter(keys, vals, 2048))
+
+
+def _scatter_twice_and_plain(keys, vals, n_rows):
+    """The card scatter twice and the plain version on CPU copies."""
+    from nerf_sandbox_tpu_torch.ops import hash_scatter as hs
+    a = hs.hash_scatter(keys, vals, n_rows)
+    b = hs.hash_scatter(keys, vals, n_rows)
+    torch.cuda.synchronize()
+    return a, b, hs.hash_scatter_plain(keys.cpu(), vals.cpu(), n_rows)
+
+
+@pytest.mark.parametrize("where", ["typical", "ball", "beyond"])
+@pytest.mark.parametrize("F", [1, 2, 3, 8])
+def test_hash_scatter_level_major_keys_bit_equal_to_plain(cuda, where, F):
+    """``corner_rows``' level-major keys at 4 levels x 2^12 rows for 20,000
+    points spread over the box, in a ball of radius 0.01 (a coarse level's
+    pairs on 8 rows) or beyond one corner (every level's pairs on 8 rows,
+    runs of 20,000): bit-equal to the plain version on CPU copies and to a
+    second card run."""
+    from nerf_sandbox_tpu_torch.models import hashgrid as hg
+    cfg = hg.HashGridConfig(n_levels=4, n_features=F, log2_table_size=12, base_res=4,
+                            max_res=64, aabb_scale=1.5)
+    rng = np.random.RandomState(F)
+    if where == "typical":
+        pts = rng.uniform(-1.6, 1.6, (20000, 3))
+    elif where == "ball":
+        d = rng.normal(size=(20000, 3))
+        pts = (np.array([0.1, 0.2, 0.3]) + 0.01 * d / np.linalg.norm(d, axis=1)[:, None]
+               * rng.uniform(0, 1, (20000, 1)))
+    else:
+        pts = rng.uniform(1.6, 3.0, (20000, 3))
+    with torch.no_grad():
+        keys = hg.corner_rows(torch.from_numpy(pts.astype(np.float32)).to(cuda),
+                              cfg)[0].reshape(-1)
+    vals = torch.randn((keys.numel(), F), device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(F))
+    a, b, want = _scatter_twice_and_plain(keys, vals, cfg.n_levels * cfg.table_size)
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), want)
+
+
+@pytest.mark.parametrize("F", [1, 2, 3])
+@pytest.mark.parametrize("n_rows", [5000, 2049, 1])
+def test_hash_scatter_rows_not_a_multiple_of_the_bucket(cuda, F, n_rows):
+    """A table whose rows end inside a bucket (2^11, 2^11, 2^10 rows at F =
+    1, 2, 3; one row holding all 40,000 pairs): every row written into an
+    output the wrapper does not fill, none past the table's end, bit-equal
+    to the plain version."""
+    from nerf_sandbox_tpu_torch.ops import hash_scatter as hs
+    assert n_rows % (1 << hs.scatter_plan(1, F, n_rows).shift)
+    keys, vals = _scatter_pairs("typical", 40000, F, n_rows, cuda, seed=n_rows + F)
+    # NaN in the block the output is likely to reuse: a row left unwritten shows
+    torch.full((n_rows, F), float("nan"), device=cuda)
+    a, b, want = _scatter_twice_and_plain(keys, vals, n_rows)
+    assert a.shape == (n_rows, F)
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), want)
+
+
+@pytest.mark.parametrize("F", [1, 2, 3])
+def test_hash_scatter_bucket_over_many_stages(cuda, F):
+    """300,000 pairs in one bucket (rows 0-999 of a 2^s-row bucket, row 3
+    hot), over about 1,200 stages of the sum's warp and 19 tiles of the
+    partition, with a few pairs in other buckets: bit-equal to the plain
+    version and to a second card run."""
+    g = torch.Generator(device=cuda).manual_seed(30 + F)
+    keys = torch.cat([torch.randint(0, 1000, (200000,), generator=g, device=cuda,
+                                    dtype=torch.int32),
+                      torch.full((100000,), 3, device=cuda, dtype=torch.int32),
+                      torch.randint(0, 65536, (500,), generator=g, device=cuda,
+                                    dtype=torch.int32)])
+    keys = keys[torch.randperm(keys.numel(), generator=g, device=cuda)]
+    vals = torch.randn((keys.numel(), F), generator=g, device=cuda)
+    a, b, want = _scatter_twice_and_plain(keys, vals, 65536)
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), want)
+
+
+@pytest.mark.parametrize("F", [1, 2])
+@pytest.mark.parametrize("rows", [2, 32, 33])
+def test_hash_scatter_hot_bucket_split_by_row(cuda, F, rows):
+    """A bucket of more than 2^15 pairs on ``rows`` rows, taken in turn as a
+    clamped cell's corners are (sum_big splits a bucket of at most 32 rows
+    by row across a block; 33 stays with the sum), beside a spread bucket:
+    bit-equal to the plain version and to a second card run."""
+    g = torch.Generator(device=cuda).manual_seed(rows + F)
+    n_hot = 150000
+    hot = (torch.arange(n_hot, device=cuda) % rows * 5 + 3).to(torch.int32)
+    spread = torch.randint(4096, 8192, (20000,), generator=g, device=cuda,
+                           dtype=torch.int32)
+    keys = torch.cat([hot[:70000], spread, hot[70000:]])
+    vals = torch.randn((keys.numel(), F), generator=g, device=cuda)
+    a, b, want = _scatter_twice_and_plain(keys, vals, 8192)
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), want)
+
+
+@pytest.mark.parametrize("F, log2", [(2, 23), (2, 24), (1, 24), (4, 22), (8, 21)])
+def test_hash_scatter_large_tables_bit_equal_to_plain(cuda, F, log2):
+    """The CLI's 16 levels at ``--hash_log2_size`` 21 to 24 (Instant-NGP's
+    largest tables at 2^24), more rows than one pass's buckets hold, so the
+    table is taken in windows: ``corner_rows``' keys of 30,000 points spread
+    over the box and 2,000 beyond one corner (hot rows), bit-equal to the
+    plain version on CPU copies and to a second card run, every row
+    written."""
+    from nerf_sandbox_tpu_torch.models import hashgrid as hg
+    from nerf_sandbox_tpu_torch.ops import hash_scatter as hs
+    cfg = hg.HashGridConfig(n_features=F, log2_table_size=log2, aabb_scale=1.5)
+    n_rows = cfg.n_levels * cfg.table_size
+    assert hs.scatter_plan(1, F, n_rows).windows > 1
+    rng = np.random.RandomState(log2 + F)
+    pts = np.concatenate([rng.uniform(-1.6, 1.6, (30000, 3)),
+                          rng.uniform(1.6, 3.0, (2000, 3))]).astype(np.float32)
+    with torch.no_grad():
+        keys = hg.corner_rows(torch.from_numpy(pts).to(cuda), cfg)[0].reshape(-1)
+    vals = torch.randn((keys.numel(), F), device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(F))
+    a, b, want = _scatter_twice_and_plain(keys, vals, n_rows)
+    assert a.shape == (n_rows, F)
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), want)
+
+
+def test_hash_encode_backward_captured_bit_equal_to_eager(cuda):
+    """The hash encode's forward and backward (the table gradient through
+    the scatter) at 4 levels x 2^12 rows x 2, 7,000 points in chunks of
+    3,000, captured in a CUDA graph: a replay on new output gradients is
+    bit-equal to the same backward run eagerly, and the scatter launched
+    once a chunk."""
+    from nerf_sandbox_tpu_torch.models import hashgrid as hg
+    from nerf_sandbox_tpu_torch.ops import hash_scatter as hs
+    cfg = hg.HashGridConfig(n_levels=4, log2_table_size=12, base_res=4, max_res=64,
+                            aabb_scale=1.5, chunk=3000)
+    rng = np.random.RandomState(1)
+    tables = torch.from_numpy(rng.uniform(-1, 1, (4, 4096, 2)).astype(np.float32)).to(
+        cuda).requires_grad_(True)
+    pts = torch.from_numpy(rng.uniform(-1.6, 1.6, (7000, 3)).astype(np.float32)).to(cuda)
+    G = torch.from_numpy(rng.normal(size=(7000, 8)).astype(np.float32)).to(cuda)
+    res = hg.level_res(cfg, cuda)
+
+    def backward():
+        enc = hg.hash_encode(tables, pts, cfg, res)
+        return torch.autograd.grad(enc, [tables], grad_outputs=G)[0]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        backward()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = hs.hash_scatter.launches
+    with torch.cuda.graph(graph):
+        got = backward()
+    assert hs.hash_scatter.launches == before + 3
+    G.copy_(torch.from_numpy(rng.normal(size=(7000, 8)).astype(np.float32)))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = backward()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_hash_encode_on_card_matches_cpu(cuda):
